@@ -13,27 +13,52 @@ Phases; any failure exits non-zero and no result line is printed:
    1e-5 x max(1, max |plain|) on finite entries, with non-finite entries
    (NaN, inf) at the same places; K2 within 1e-6 x max(1, max |plain|).
    The multi-Bulyan plan built from the kernel's distances must equal the
-   plan built from the plain distances bit for bit;
+   plan built from the plain distances bit for bit.
+   K5 ``dequant_stats`` on int8 and bf16 payloads at n in {1, 3, 11, 13,
+   37, 150} x d in {1, 4095, 100003}, on the embedding leaf, and on
+   QSGD and bf16 wires forged by ``scale_poison`` (negative multipliers):
+   within K1's tolerance of its plain version (distances against
+   max(1, max |plain|, 2 max norm): a raw distance is formed as
+   sq_i + sq_j - 2 g_ij), equal bit for bit to K1 on the decoded stack,
+   and the same multi-Bulyan plan from its distances as from the plain
+   ones (where n >= 3 makes one);
 4. training: ``repro_torch.launch.train`` through its entry point at
    qwen2-1.5b's full width (d_model 1536, 12/2 heads, d_ff 8960, vocab
    151936) cut to 2 layers: 11 workers, f = 2, multi_bulyan, the ``inf``
    attack, SGD with momentum, seq 128, 2 sequences a worker, 3 steps,
    kernels on.  Every loss must be finite, the byzantine selection mass 0
    at every step, and K1 and K2 must each launch once per gradient leaf
-   per step;
-5. timing at the main path's leaf shapes (one launch per leaf, summed over
-   the leaves of one step; median of repeats, CUDA events);
-6. profile: one more steady-state step of the same configuration under
-   ``torch.profiler``: device-busy share and the kernels that take the
-   most device time;
-7. the ``kernels`` JSON line, then the last line:
+   per step, K5 never;
+5. wire training A: the same configuration with ``--codec qsgd:bits=8
+   --attack scale_poison``: finite losses, byzantine mass 0 at each step,
+   the printed wire line at one byte a coordinate plus 4 a leaf, and K5
+   and K2 once per leaf per step, K1 never;
+6. wire training B: ``--codec signsgd:ef=1 --attack payload_flip`` for 2
+   steps at 1 layer: finite losses, a finite non-zero error-feedback
+   residual after each step, K5 and K2 once per leaf per step, K1 never;
+7. K5 on a real wire-A container (one batch's gradients, QSGD-encoded,
+   forged by ``scale_poison``): every leaf checked as in phase 3, and no
+   plan mass on the forged rows;
+8. timing at the main path's leaf shapes (one launch per leaf, summed over
+   the leaves of one step; median of repeats, CUDA events), K5 on int8
+   and bf16 payloads beside decode + K1, each payload also checked as in
+   phase 3;
+9. profile: one more steady-state step of the uncompressed configuration
+   and one of wire A under ``torch.profiler``: device-busy share and the
+   kernels that take the most device time;
+10. the ``kernels`` JSON line, then the last line:
    ``{"ok": true, "device": {...}}``.
+
+Launch counts are read per phase: every count is set to 0 just before a
+training phase and read just after it.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
 """
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -51,10 +76,26 @@ EMBED_WIDTH = 151936 * 1536           # qwen2-1.5b's tied embedding leaf
 K1_TOL, K2_TOL = 1e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12               # H100 SXM data sheet, non-tensor fp32
+K5_NS = (1, 3, 11, 13, 37, 150)
+K5_WIDTHS = (1, 4095, 100_003)
 TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--layers", "2", "--steps", "3",
               "--seq", "128", "--per-worker-batch", "2", "--workers", str(N),
               "--f", str(F), "--gar", "multi_bulyan", "--attack", "inf",
               "--optimizer", "sgd", "--use-kernels", "--device", "cuda"]
+
+
+def with_flags(args, **flags):
+    """``args`` with each ``--flag`` (underscores as dashes) set anew."""
+    out = list(args)
+    for k, v in flags.items():
+        out[out.index("--" + k.replace("_", "-")) + 1] = str(v)
+    return out
+
+
+WIRE_A_ARGS = with_flags(TRAIN_ARGS, attack="scale_poison") + [
+    "--codec", "qsgd:bits=8"]
+WIRE_B_ARGS = with_flags(TRAIN_ARGS, attack="payload_flip", layers=1,
+                         steps=2) + ["--codec", "signsgd:ef=1"]
 
 
 class SmokeFailure(Exception):
@@ -180,39 +221,233 @@ def kernels_vs_plain(torch):
     return worst
 
 
-def training(torch):
+def largest_f(n):
+    """The largest f multi-Bulyan takes at n (n >= 4f + 3), or None."""
+    return (n - 3) // 4 if n >= 3 else None
+
+
+def k5_payload(torch, n, d, dtype, seed):
+    """(n, d) int8 or bf16 payload on the card and (n,) multipliers: row i
+    scaled by 1 + 0.1 i (distances well apart), row 0's multiplier
+    negative, as a ``scale_poison`` row sends it."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if dtype == torch.int8:
+        p = torch.randint(-127, 128, (n, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        base = 1.0 / 127.0
+    else:
+        p = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        base = 1.0
+    mult = base * (1.0 + 0.1 * torch.arange(n, dtype=torch.float32,
+                                            device="cuda"))
+    mult[0] = -mult[0]
+    return p, mult
+
+
+def compare_k5(torch, label, p, mult, f, worst):
+    """K5 against its plain version (K1's tolerance), against K1 on the
+    decoded stack (bit for bit) and, with f given, the plans from K5's and
+    the plain distances (bit for bit).  Returns the plan from K5."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_stats import dequant_stats_cuda
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
+    raw_k, sq_k = dequant_stats_cuda(p, mult)
+    raw_p, sq_p = ref.dequant_stats_ref(p, mult)
+    raw_1, sq_1 = pairwise_stats_cuda(p.float() * mult[:, None])
+    torch.cuda.synchronize()
+    check(torch.equal(raw_k, raw_1) and torch.equal(sq_k, sq_1),
+          f"K5 {label}: differs from K1 on the decoded stack")
+    check(bool(torch.isfinite(raw_p).all()), f"K5 {label}: non-finite")
+    e_d = float(torch.max(torch.abs(raw_k - raw_p)))
+    e_s = float(torch.max(torch.abs(sq_k - sq_p)))
+    s_max = float(torch.max(sq_p))
+    r_d = e_d / max(1.0, float(torch.max(torch.abs(raw_p))), 2 * s_max)
+    r_s = e_s / max(1.0, s_max)
+    check(r_d <= K1_TOL and r_s <= K1_TOL,
+          f"K5 {label}: rel err dists {r_d:.3e} norms {r_s:.3e} > {K1_TOL}")
+    plan = None
+    if f is not None:
+        n = p.shape[0]
+        agg = api.get_aggregator("multi_bulyan")
+        plan = agg.plan(api.AggStats(n=n, f=f,
+                                     dists=api.finalize_dists(raw_k)))
+        plan_p = agg.plan(api.AggStats(n=n, f=f,
+                                       dists=api.finalize_dists(raw_p)))
+        check(torch.equal(plan.w_ext, plan_p.w_ext) and
+              torch.equal(plan.w_agr, plan_p.w_agr),
+              f"K5 {label}: plan from kernel distances differs")
+    worst["max_abs"] = max(worst["max_abs"], e_d, e_s)
+    worst["max_rel"] = max(worst["max_rel"], r_d, r_s)
+    log(f"K5 {label:34s} rel err dists {r_d:.3e} norms {r_s:.3e} | "
+        f"== K1 on decoded bitwise | plan "
+        f"{'identical' if f is not None else 'not checked'}")
+    return plan, raw_k
+
+
+def k5_vs_plain(torch):
+    """Every K5 case of the module docstring; returns the worst errors."""
+    from repro_torch.comm import codecs as CC
+    from repro_torch.dist import inject_wire
+    from repro_torch.kernels import ops
+    worst = {"max_abs": 0.0, "max_rel": 0.0}
+    for dtype in (torch.int8, torch.bfloat16):
+        tag = "int8" if dtype == torch.int8 else "bf16"
+        cases = [(n, d) for n in K5_NS for d in K5_WIDTHS]
+        cases.append((N, EMBED_WIDTH))
+        for n, d in cases:
+            p, mult = k5_payload(torch, n, d, dtype, seed=n * 7 + d)
+            compare_k5(torch, f"{tag} n={n} d={d}", p, mult, largest_f(n),
+                       worst)
+            del p, mult
+            torch.cuda.empty_cache()
+    for spec in ("qsgd:bits=8", "bf16"):
+        x = rows_stack(torch, 1_000_000, seed=5)
+        enc, _ = CC.get_codec(spec).encode(x, seed=5)
+        enc = inject_wire(enc, F, "scale_poison", seed=5)
+        p, mult = CC.get_codec(spec).dequant_form(enc.payload, enc.sidecar)
+        plan, _ = compare_k5(torch, f"{spec} scale_poison d=1000000",
+                             p.contiguous(), mult.float().contiguous(), F,
+                             worst)
+        byz = float(torch.sum(plan.selection_weights()[:F]))
+        check(byz == 0.0, f"{spec} scale_poison: byzantine mass {byz}")
+        del x, enc, p, mult
+        torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return worst
+
+
+def real_wire_k5(torch, worst):
+    """K5 on one real wire-A container: the 11 workers' gradients of one
+    batch at the training phase's configuration, QSGD-encoded and forged
+    by ``scale_poison``; every leaf is checked as in :func:`compare_k5`,
+    and the plan from the summed distances gives the forged rows no
+    mass."""
+    from repro_torch import models as MD
+    from repro_torch.comm import codecs as CC
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.dist import inject_wire, per_worker_grads, split_workers
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
+    params = MD.init_model(cfg, seed=0, device="cuda")
+    batch = {k: v.to("cuda") for k, v in split_workers(
+        next(lm_batches(cfg.vocab_size, 2 * N, 128, seed=0)), N).items()}
+    _, grads = per_worker_grads(params, cfg, batch, chunk_q=128)
+    del params
+    codec = CC.get_codec("qsgd:bits=8")
+    with torch.no_grad():
+        enc, _ = codec.encode(grads, seed=7)
+        del grads
+        enc = inject_wire(enc, F, "scale_poison", seed=7)
+        raw = torch.zeros((N, N), dtype=torch.float32, device="cuda")
+        for i, (p, s) in enumerate(zip(tree_leaves(enc.payload),
+                                       CC.sidecar_leaves(enc))):
+            p2, mult = codec.dequant_form(p, s)
+            _, raw_k = compare_k5(
+                torch, f"wire A leaf {i} {tuple(p.shape)}", p2.contiguous(),
+                mult.float().contiguous(), None, worst)
+            raw = raw + raw_k
+    plan = plan_of(raw)
+    byz = float(torch.sum(plan.selection_weights()[:F]))
+    check(byz == 0.0, f"real wire A container: byzantine mass {byz}")
+    log(f"real wire A container: {len(enc.shapes)} leaves checked, "
+        f"byzantine mass 0")
+    del enc, raw
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+
+
+class Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True):
+    """One ``train.run`` with every launch count set to 0 just before and
+    read just after; each kernel must launch ``want_per_leaf_step[name]``
+    times per leaf per step (0: never).  Returns (counts, leaf shapes,
+    records, printed text)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
-    ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
+    tee = Tee(sys.stdout)
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    params, history = train.run(TRAIN_ARGS)
-    wall = time.perf_counter() - t0
+    with contextlib.redirect_stdout(tee):
+        params, history = train.run(argv)
     counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
     shapes = [(N,) + tuple(p.shape) for p in tree_leaves(params)]
     del params
     torch.cuda.empty_cache()
     steps = len(history)
-    check(steps == 3, f"expected 3 steps, got {steps}")
+    want_steps = int(argv[argv.index("--steps") + 1])
+    check(steps == want_steps, f"{label}: {steps} steps, want {want_steps}")
     for i, rec in enumerate(history):
         check(math.isfinite(rec["loss"]) and all(
             math.isfinite(v) for v in rec["loss_per_worker"]),
-            f"step {i}: non-finite loss {rec['loss']}")
-        check(rec["byz_mass"] == 0.0,
-              f"step {i}: byzantine selection mass {rec['byz_mass']}")
-    want = len(shapes) * steps
-    for name, got in counts.items():
-        check(got == want, f"{name}: {got} launches, want {want} "
-              f"({len(shapes)} leaves x {steps} steps)")
+            f"{label} step {i}: non-finite loss {rec['loss']}")
+        if zero_byz:
+            check(rec["byz_mass"] == 0.0, f"{label} step {i}: byzantine "
+                  f"selection mass {rec['byz_mass']}")
+    want = {name: k * len(shapes) * steps
+            for name, k in want_per_leaf_step.items()}
+    check(counts == want, f"{label}: launches {counts}, want {want} "
+          f"({len(shapes)} leaves x {steps} steps)")
     step_s = [rec["seconds"] for rec in history]
-    log(f"training: {steps} steps, losses "
-        f"{[round(r['loss'], 4) for r in history]}, byz_mass 0 each step, "
-        f"launches {counts} = {len(shapes)} leaves x {steps} steps; "
-        f"step seconds {[round(s, 4) for s in step_s]} (first includes "
-        f"warm-up); wall {wall:.1f}s; peak memory "
+    log(f"{label}: {steps} steps, losses "
+        f"{[round(r['loss'], 4) for r in history]}, byz_mass "
+        f"{[r['byz_mass'] for r in history]}, launches {counts} = "
+        f"{len(shapes)} leaves x {steps} steps; step seconds "
+        f"{[round(s, 4) for s in step_s]} (first includes warm-up); wall "
+        f"{wall:.1f}s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts, shapes, step_s
+    return counts, shapes, history, tee.kept.getvalue()
+
+
+def training(torch):
+    counts, shapes, history, _ = train_phase(
+        torch, "training", TRAIN_ARGS,
+        {"pairwise_stats": 1, "fused_select": 1, "dequant_stats": 0})
+    return counts, shapes, [rec["seconds"] for rec in history]
+
+
+def wire_training(torch):
+    """Phases A and B; returns phase A's counts (the wire's main path)."""
+    counts, shapes, history, text = train_phase(
+        torch, "wire A (qsgd:bits=8, scale_poison)", WIRE_A_ARGS,
+        {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1})
+    # qsgd:bits=8: one byte a coordinate plus one fp32 multiplier a leaf
+    want = sum(math.prod(s[1:]) + 4 for s in shapes)
+    line = next((ln for ln in text.splitlines()
+                 if ln.startswith("[train] wire:")), "")
+    check(line.startswith(f"[train] wire: {want:,} B/worker/step"),
+          f"wire A: printed {line!r}, want {want:,} B/worker/step")
+    check(all(rec["wire_bytes_per_worker"] == want for rec in history),
+          "wire A: the step's container disagrees with the wire line")
+    log(f"wire A: {line}")
+    _, _, history_b, _ = train_phase(
+        torch, "wire B (signsgd:ef=1, payload_flip)", WIRE_B_ARGS,
+        {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1},
+        zero_byz=False)
+    res = [rec["residual_max_abs"] for rec in history_b]
+    check(all(math.isfinite(r) and r > 0.0 for r in res),
+          f"wire B: error-feedback residual max |r| per step {res}")
+    log(f"wire B: residual max |r| per step {res} (finite, non-zero)")
+    return counts, [rec["seconds"] for rec in history]
 
 
 def time_ms(torch, fn, reps):
@@ -230,11 +465,13 @@ def time_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def timing(torch, shapes):
+def timing(torch, shapes, worst_k5):
     """Per-step sums over the main path's leaves of each function's median
-    time, with the bound from this run's shapes."""
+    time, with the bound from this run's shapes.  K5 is also checked on
+    every payload it is timed on, as in :func:`compare_k5`."""
     from repro_torch.core import api
     from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_stats import dequant_stats_cuda
     from repro_torch.kernels.fused_select import fused_select_cuda
     from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
     numels = [math.prod(s[1:]) for s in shapes]
@@ -265,21 +502,49 @@ def timing(torch, shapes):
         bound["k2"]["bytes"] += 4 * (N * m + m + 2 * theta * N) \
             / HBM_BYTES_PER_S
         bound["k2"]["operations"] += 4 * theta * N * m / FP32_FLOP_PER_S
+    del leaves
+    torch.cuda.empty_cache()
+    # K5 on the same leaf shapes, int8 then bf16 payloads (one type on the
+    # card at a time), beside its plain version and decode + K1
+    for dtype in (torch.int8, torch.bfloat16):
+        tag = "int8" if dtype == torch.int8 else "bf16"
+        for k in ("k5", "k5_plain", "k5_unfused"):
+            tot[f"{k}_{tag}"] = 0.0
+        b = bound[f"k5_{tag}"] = {"bytes": 0.0, "operations": 0.0}
+        for i, m in enumerate(numels):
+            p, mult = k5_payload(torch, N, m, dtype, seed=i)
+            compare_k5(torch, f"timed {tag} leaf {i} d={m}", p, mult, F,
+                       worst_k5)
+            reps = 5 if m > 10_000_000 else 20
+            tot[f"k5_{tag}"] += time_ms(
+                torch, lambda: dequant_stats_cuda(p, mult), reps)
+            tot[f"k5_plain_{tag}"] += time_ms(
+                torch, lambda: ref.dequant_stats_ref(p, mult), min(reps, 3))
+            tot[f"k5_unfused_{tag}"] += time_ms(
+                torch, lambda: pairwise_stats_cuda(p.float() * mult[:, None]),
+                reps)
+            # the payload read once, the multipliers once, the outputs
+            # written once; K1's operations plus one decode multiply an
+            # element
+            b["bytes"] += (N * m * p.element_size() + 4 * N
+                           + 4 * (N * N + N)) / HBM_BYTES_PER_S
+            b["operations"] += (N * (N + 1) + N) * m / FP32_FLOP_PER_S
+            del p, mult
+            torch.cuda.empty_cache()
     for k, b in bound.items():
         tot[f"{k}_bound_by"] = max(b, key=b.get)
         tot[f"{k}_bound"] = 1e3 * max(b.values())
-    del leaves
-    torch.cuda.empty_cache()
     log(f"timing over {len(shapes)} leaves ({sum(numels):,} coordinates "
         f"x {N} workers), ms per step: " + ", ".join(
             f"{k} {v}" for k, v in tot.items()))
     return tot
 
 
-def profile_step(torch):
-    """One steady-state step of the training phase's configuration, traced:
-    device time summed over the kernels the profiler saw, against the
-    step's wall time (synchronised; the profiler's own cost included)."""
+def profile_step(torch, label, attack, codec=None):
+    """One steady-state step of the training phase's configuration (with
+    ``attack`` and ``codec``), traced: device time summed over the kernels
+    the profiler saw, against the step's wall time (synchronised; the
+    profiler's own cost included)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import models as MD
     from repro_torch.configs import RobustConfig, get_config
@@ -291,9 +556,9 @@ def profile_step(torch):
     rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan")
     opt = sgd(momentum=0.9)
     params = MD.init_model(cfg, seed=0, device="cuda")
-    state = init_train_state(opt, params)
+    state = init_train_state(opt, params, n_workers=N, codec=codec)
     step = make_train_step(cfg, rcfg, opt, constant(0.05), chunk_q=128,
-                           attack="inf", telemetry=True)
+                           attack=attack, codec=codec, telemetry=True)
     data = lm_batches(cfg.vocab_size, 2 * N, 128, seed=0)
 
     def one(params, state, i):
@@ -319,7 +584,8 @@ def profile_step(torch):
             acc[1] += 1
     busy_ms = sum(v[0] for v in per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
-    log(f"profile: one step {wall_ms:.1f} ms wall under the profiler, "
+    log(f"profile {label}: one step {wall_ms:.1f} ms wall under the "
+        f"profiler, "
         f"kernels busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(v[1] for v in per_kernel.values())} kernel launches")
     for name, (ms, count) in rows[:15]:
@@ -348,10 +614,24 @@ def main():
         build_kernels()
         t0 = time.perf_counter()
         worst = kernels_vs_plain(torch)
-        log(f"kernels vs plain versions: {time.perf_counter() - t0:.1f}s")
+        worst_k5 = k5_vs_plain(torch)
+        log(f"kernels vs plain versions: {time.perf_counter() - t0:.1f}s; "
+            f"K5 worst relative error {worst_k5['max_rel']:.3e}")
         counts, shapes, step_s = training(torch)
-        tot = timing(torch, shapes)
-        profile_step(torch)
+        counts_wire, wire_s = wire_training(torch)
+        real_wire_k5(torch, worst_k5)
+        tot = timing(torch, shapes, worst_k5)
+        log(f"K5 worst relative error over every check: "
+            f"{worst_k5['max_rel']:.3e}")
+        for t in ("int8", "bf16"):
+            log(f"K5 {t} payload, ms per step: kernel {tot[f'k5_{t}']:.4f}, "
+                f"bound {tot[f'k5_{t}_bound']:.4f} "
+                f"({tot[f'k5_{t}_bound_by']}), plain "
+                f"{tot[f'k5_plain_{t}']:.4f}, decode + K1 "
+                f"{tot[f'k5_unfused_{t}']:.4f}")
+        profile_step(torch, "uncompressed (inf)", "inf")
+        profile_step(torch, "wire A (qsgd:bits=8, scale_poison)",
+                     "scale_poison", "qsgd:bits=8")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", flush=True)
         return 1
@@ -372,8 +652,17 @@ def main():
          "ms": tot["k2"], "plain_ms": tot["k2_plain"],
          "bound_ms": tot["k2_bound"], "bound_by": tot["k2_bound_by"],
          "library_ms": None},
+        {"name": "dequant_stats", "route": "cuda",
+         "source": "src/repro_torch/csrc/dequant_stats.cu",
+         "replaces": "src/repro/kernels/dequant_stats.py:90",
+         "launches": counts_wire["dequant_stats"],
+         "max_abs_err": worst_k5["max_abs"],
+         "ms": tot["k5_int8"], "plain_ms": tot["k5_plain_int8"],
+         "bound_ms": tot["k5_int8_bound"],
+         "bound_by": tot["k5_int8_bound_by"], "library_ms": None},
     ]
-    log(f"card: {power}; step seconds {step_s}")
+    log(f"card: {power}; step seconds {step_s}; wire A step seconds "
+        f"{wire_s}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

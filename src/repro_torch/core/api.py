@@ -14,8 +14,12 @@ CUDA tensors, their plain versions for CPU tensors.
 Gradient trees are nested dicts whose leaves carry the worker axis first;
 leaves are visited in sorted key-path order (``repro_torch.tree``), as JAX
 flattens them, so cross-leaf fp32 sums associate as in the reference.
-The mesh, encoded-wire and transform branches of the JAX module are not
-ported yet.
+
+The statistics and the apply accept a ``repro_torch.comm``
+:class:`EncodedGrads` wire container in place of the tree: statistics then
+run on the payloads (K5 under ``use_kernels`` for the int8 / bf16 leaves),
+and the apply decodes first.  The mesh and transform branches of the JAX
+module are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.comm.container import EncodedGrads
 from repro_torch.core import gar as G
 from repro_torch.core import theory
 from repro_torch.kernels import ops as kops
@@ -62,6 +67,11 @@ def _leaf_stats_contrib(leaf: Tensor) -> Tuple[Tensor, Tensor]:
     return sq[:, None] + sq[None, :] - 2.0 * gram, sq
 
 
+def _as_encoded(grads: Tree) -> Optional[EncodedGrads]:
+    """The wire container, or None for a plain tree."""
+    return grads if isinstance(grads, EncodedGrads) else None
+
+
 def finalize_dists(total: Tensor) -> Tensor:
     """Numerical floor + exact-zero diagonal on an accumulated (n, n) sum
     (NaN propagates through the floor, as ``jnp.maximum`` does)."""
@@ -75,7 +85,12 @@ def raw_pairwise_stats(grads: Tree, *, use_kernels: bool = False
                        ) -> Tuple[Tensor, Tensor]:
     """(raw (n, n) sq-dists, (n,) sq-norms) summed over the leaves in
     sorted key-path order; unclamped, diagonal kept.  Under
-    ``use_kernels`` each leaf is one K1 launch (one read of the leaf)."""
+    ``use_kernels`` each leaf is one K1 launch (one read of the leaf); a
+    wire container's int8 / bf16 leaves are one K5 launch each."""
+    enc = _as_encoded(grads)
+    if enc is not None:
+        from repro_torch.comm import codecs as CC
+        return CC.encoded_raw_stats(enc, use_kernels=use_kernels)
     leaves = tree_leaves(grads)
     if not leaves:
         raise ValueError("empty gradient tree")
@@ -117,7 +132,17 @@ def compute_stats(grads: Tree, f: int, *, needs_dists: bool = True,
                   needs_norms: bool = False, use_kernels: bool = False,
                   dists: Optional[Tensor] = None) -> AggStats:
     """Build the :class:`AggStats` a rule's ``plan`` consumes; only what
-    the flags ask for is computed (the norms come free with distances)."""
+    the flags ask for is computed (the norms come free with distances).
+    ``grads`` may be a wire container: the statistics then run on its
+    payloads, without decoding the stack here."""
+    enc = _as_encoded(grads)
+    if enc is not None:
+        norms = None
+        if needs_dists and dists is None:
+            dists, norms = tree_pairwise_stats(enc, use_kernels=use_kernels)
+        if needs_norms and norms is None:
+            norms = raw_pairwise_stats(enc, use_kernels=use_kernels)[1]
+        return AggStats(n=enc.n, f=f, dists=dists, sq_norms=norms)
     leaves = tree_leaves(grads)
     if not leaves:
         raise ValueError("empty gradient tree")
@@ -227,7 +252,13 @@ class Aggregator:
 
     def apply(self, plan: AggPlan, grads: Tree, *,
               use_kernels: bool = False) -> Tree:
-        """Plan application, shared across rules, dispatched on plan.kind."""
+        """Plan application, shared across rules, dispatched on plan.kind.
+        A wire container is decoded first: the apply mixes values across
+        workers, so it runs on the decoded fp32 rows."""
+        enc = _as_encoded(grads)
+        if enc is not None:
+            from repro_torch.comm import codecs as CC
+            grads = CC.get_codec(enc.spec).decode(enc)
         if plan.kind == "mean":
             return tree_map(lambda x: torch.mean(x, dim=0), grads)
         if plan.kind == "weighted":

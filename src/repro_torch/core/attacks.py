@@ -6,18 +6,34 @@ proposals; ``gen`` is a ``torch.Generator`` (only ``gaussian`` draws from
 it).  The stack handed to the GAR is ``concat([G_byz, G_correct])``.
 
 Attacks are addressed by spec string: a bare registry name or a name with
-keyword overrides (``"sign_flip:scale=5"``).  The adaptive and wire attacks
-of the JAX module are not ported yet.
+keyword overrides (``"sign_flip:scale=5"``).  The wire attacks, which
+forge the encoded messages of a ``repro_torch.comm`` wire, are at the end
+of the module.  The adaptive attacks of the JAX module are not ported yet.
 """
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 Tensor = torch.Tensor
 Attack = Callable[[Tensor, int, Optional[torch.Generator]], Tensor]
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A seed derived from ``(seed, data)``: the counterpart of
+    ``jax.random.fold_in`` for the port's integer seeds."""
+    return (seed * 1_000_003 + data) % (2 ** 63)
+
+
+def leaf_generator(device: Union[str, torch.device], seed: int,
+                   leaf_index: int) -> torch.Generator:
+    """The generator leaf ``leaf_index`` of a step draws from, on
+    ``device``, seeded by ``fold_seed(seed, leaf_index)``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(fold_seed(seed, leaf_index))
+    return gen
 
 
 def _rows(g: Tensor, f: int) -> Tensor:
@@ -132,3 +148,90 @@ def apply_attack(G_correct: Tensor, f: int, name: str,
         return G_correct
     byz = get_attack(name)(G_correct, f, gen)
     return torch.cat([byz.to(G_correct.dtype), G_correct], dim=0)
+
+
+# --------------------------------------------------------------------------
+# wire attacks
+#
+# With a codec on the wire the adversary controls its messages, not its
+# gradients: the payload and the scale sidecar are separate fields a GAR
+# only sees after decode.  A wire attack is
+# ``(P_correct, S_correct, f, gen) -> (P_byz, S_byz)`` per leaf, where
+# ``P_correct`` is the (n-f, ...) stack of honest payload rows and
+# ``S_correct`` the matching sidecar rows (``None`` for sidecar-free
+# codecs).  Byzantine rows stay wire-legal (same dtype and shape): the
+# attack model is a malicious worker, not a corrupted channel.
+# --------------------------------------------------------------------------
+WireAttack = Callable[[Tensor, Optional[Tensor], int,
+                       Optional[torch.Generator]],
+                      Tuple[Tensor, Optional[Tensor]]]
+
+
+def scale_poison(P: Tensor, S: Optional[Tensor], f: int, gen=None,
+                 gain: float = 100.0) -> Tuple[Tensor, Optional[Tensor]]:
+    """Honest-looking payload, poisoned sidecar: copy a correct worker's
+    payload rows verbatim and multiply its dequant multiplier by
+    ``-gain`` (the decoded rows point ``-gain`` times along a correct
+    gradient).  Sidecar-free codecs (and top-k's index sidecar) scale the
+    payload itself instead, saturating in int8 so the wire stays legal."""
+    shape = (f,) + tuple(P.shape[1:])
+    if S is None or not S.is_floating_point():
+        scaled = -gain * P[:1].float()
+        if not P.is_floating_point():
+            info = torch.iinfo(P.dtype)
+            scaled = torch.clamp(torch.round(scaled), info.min, info.max)
+        Pb = scaled.to(P.dtype).expand(shape)
+        Sb = None if S is None else S[:1].expand((f,) + tuple(S.shape[1:]))
+        return Pb, Sb
+    Sb = (-gain * S[:1]).to(S.dtype).expand((f,) + tuple(S.shape[1:]))
+    return P[:1].expand(shape), Sb
+
+
+def payload_flip(P: Tensor, S: Optional[Tensor], f: int, gen=None
+                 ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Negate a correct worker's payload rows and keep its sidecar: the
+    wire form of ``sign_flip``, invisible to any scale-level check."""
+    shape = (f,) + tuple(P.shape[1:])
+    if not P.is_floating_point():
+        info = torch.iinfo(P.dtype)
+        neg = torch.clamp(-P[:1].to(torch.int32), info.min, info.max)
+        Pb = neg.to(P.dtype).expand(shape)
+    else:
+        Pb = (-P[:1]).expand(shape)
+    Sb = None if S is None else S[:1].expand((f,) + tuple(S.shape[1:]))
+    return Pb, Sb
+
+
+WIRE_ATTACKS: Dict[str, WireAttack] = {
+    "scale_poison": scale_poison,
+    "payload_flip": payload_flip,
+}
+
+
+def is_wire_attack(spec: str) -> bool:
+    return parse_spec(spec)[0] in WIRE_ATTACKS
+
+
+def get_wire_attack(spec: str) -> WireAttack:
+    """Resolve a wire-attack spec to a callable (same grammar as attacks)."""
+    name, kwargs = parse_spec(spec)
+    try:
+        fn = WIRE_ATTACKS[name]
+    except KeyError:
+        raise KeyError(f"unknown wire attack {name!r}; available: "
+                       f"{sorted(WIRE_ATTACKS)}") from None
+    if not kwargs:
+        return fn
+    params = inspect.signature(fn).parameters
+    tunable = {k for k, p in params.items()
+               if p.default is not p.empty and k != "gen"}
+    unknown = set(kwargs) - tunable
+    if unknown:
+        raise ValueError(f"wire attack {name!r} has no parameter(s) "
+                         f"{sorted(unknown)}; tunable: {sorted(tunable)}")
+
+    def bound(P, S, f, gen=None):
+        return fn(P, S, f, gen, **kwargs)
+
+    bound.__name__ = name
+    return bound

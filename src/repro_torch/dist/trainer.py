@@ -7,16 +7,24 @@ One train step:
    ``(n, *leaf.shape)`` stack per leaf, which is already the contiguous
    ``(n, numel)`` operand the kernels read;
 2. :func:`inject_byzantine` overwrites the first ``f`` worker rows of the
-   stack, in place, with the attack's proposals;
-3. stats → plan → apply (``core.api.AggregatorBackend``): under
-   ``rcfg.use_kernels`` one K1 launch per leaf for the statistics and one
-   K2 launch per leaf for a bulyan apply;
-4. one optimizer update from the aggregated gradient.
+   stack, in place, with the attack's proposals (a gradient-space
+   attack);
+3. with a ``codec``: every worker encodes its rows onto the wire
+   (``repro_torch.comm``), :func:`inject_wire` forges the first ``f``
+   workers' messages (a wire attack), and the container is decoded into
+   the gradient stack;
+4. stats → plan → apply (``core.api.AggregatorBackend``): under
+   ``rcfg.use_kernels`` the statistics take one K1 launch per leaf, or
+   under a codec one K5 launch per int8 / bf16 wire leaf (straight off
+   the payloads), and a bulyan apply one K2 launch per leaf on the
+   decoded stack;
+5. one optimizer update from the aggregated gradient.
 
 The step has signature ``(params, state, batch, seed) -> (params, state,
-metrics)``; ``state`` is a :class:`TrainerState` (only ``opt`` is live in
-the port so far).  The codec, mesh, hierarchical, observability and
-transform options of the JAX trainer are not ported yet.
+metrics)``; ``state`` is a :class:`TrainerState` (``opt``, and ``cres``,
+the error-feedback residual, under an ``ef=1`` codec).  The mesh,
+hierarchical, observability and transform options of the JAX trainer, and
+its adaptive attacks, are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import comm as CM
 from repro_torch import models as MD
 from repro_torch.configs.base import ArchConfig, RobustConfig
 from repro_torch.core import api
@@ -52,11 +61,9 @@ def split_workers(batch: Dict[str, Tensor], n_workers: int
 
 
 # ------------------------------------------------------------------ attacks
-def _leaf_generator(device: torch.device, seed: int, leaf_index: int
-                    ) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed((seed * 1_000_003 + leaf_index) % (2 ** 63))
-    return gen
+#: the seed stream of the codec's randomness, as the JAX trainer's
+#: ``fold_in(key, 2**31 - 2)``; attack leaf i draws from stream i
+ENCODE_STREAM = 2 ** 31 - 2
 
 
 def inject_byzantine(grads: Tree, f: int, attack, seed: int = 0) -> Tree:
@@ -70,17 +77,46 @@ def inject_byzantine(grads: Tree, f: int, attack, seed: int = 0) -> Tree:
     attack_fn = ATK.get_attack(attack) if isinstance(attack, str) else attack
     for i, leaf in enumerate(tree_leaves(grads)):
         correct = leaf[f:].reshape(leaf.shape[0] - f, -1).float()
-        byz = attack_fn(correct, f, _leaf_generator(leaf.device, seed, i))
+        byz = attack_fn(correct, f, ATK.leaf_generator(leaf.device, seed, i))
         leaf[:f].copy_(byz.reshape((f,) + tuple(leaf.shape[1:])))
     return grads
+
+
+def inject_wire(enc: CM.EncodedGrads, f: int, attack, seed: int = 0
+                ) -> CM.EncodedGrads:
+    """Replace the first ``f`` workers' wire messages with the attack's.
+
+    The wire counterpart of :func:`inject_byzantine`: ``attack`` is a wire
+    attack spec (``core.attacks.WIRE_ATTACKS``) or a resolved callable; it
+    sees the honest payload and sidecar rows of each leaf and forges the
+    first ``f`` rows of both.  Leaf i gets the generator of
+    ``(seed, i)``.  Returns a new container; ``enc`` is not modified.
+    """
+    if f == 0:
+        return enc
+    fn = ATK.get_wire_attack(attack) if isinstance(attack, str) else attack
+    p_leaves = tree_leaves(enc.payload)
+    new_p, new_s = [], []
+    for i, (p, s) in enumerate(zip(p_leaves, CM.codecs.sidecar_leaves(enc))):
+        gen = ATK.leaf_generator(p.device, seed, i)
+        pb, sb = fn(p[f:], None if s is None else s[f:], f, gen)
+        new_p.append(torch.cat([pb.to(p.dtype), p[f:]], dim=0))
+        new_s.append(None if s is None else
+                     torch.cat([sb.to(s.dtype), s[f:]], dim=0))
+    sidecar = None if enc.sidecar is None else \
+        tree_unflatten(enc.sidecar, new_s)
+    return dataclasses.replace(enc, payload=tree_unflatten(enc.payload, new_p),
+                               sidecar=sidecar)
 
 
 # -------------------------------------------------------------- state
 @dataclasses.dataclass(frozen=True)
 class TrainerState:
-    """The trainer-state container, accessed by field name.  Only ``opt``
-    (the optimizer's :class:`OptState`) is live in the port so far; the
-    other slots of the JAX container wait for their subsystems."""
+    """The trainer-state container, accessed by field name: ``opt`` (the
+    optimizer's :class:`OptState`) and ``cres`` (the error-feedback
+    compression residual, a tree of fp32 ``(n, ...)`` leaves, ``None``
+    unless the codec has ``ef=1``).  The other slots of the JAX container
+    wait for their subsystems."""
 
     opt: OptState
     tstates: tuple = ()
@@ -88,8 +124,24 @@ class TrainerState:
     cres: Any = None
 
 
-def init_train_state(opt: Optimizer, params: Tree) -> TrainerState:
-    return TrainerState(opt=opt.init(params))
+def _resolve_codec(codec) -> Optional[CM.Codec]:
+    """Codec spec string / instance / None -> codec instance or None."""
+    return CM.get_codec(codec) if isinstance(codec, str) else codec
+
+
+def init_train_state(opt: Optimizer, params: Tree, *, n_workers: int = 0,
+                     codec=None) -> TrainerState:
+    """Initial :class:`TrainerState`; an error-feedback codec (``ef=1``)
+    fills ``cres`` with zeros shaped like the ``n_workers`` stack."""
+    codec_obj = _resolve_codec(codec)
+    cres = None
+    if codec_obj is not None and codec_obj.stateful:
+        if n_workers <= 0:
+            raise ValueError("error-feedback codecs need n_workers > 0")
+        # expand: the stacked shapes as views, nothing allocated
+        cres = codec_obj.init_residual(tree_map(
+            lambda p: p.expand((n_workers,) + tuple(p.shape)), params))
+    return TrainerState(opt=opt.init(params), cres=cres)
 
 
 # ------------------------------------------------------------------ trainer
@@ -133,30 +185,58 @@ def per_worker_grads(params: Tree, cfg: ArchConfig,
 def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     lr_fn, *, window: int = 0, chunk_q: int = 1024,
                     attack: str = "none", attack_f: Optional[int] = None,
-                    telemetry: bool = False):
+                    codec=None, telemetry: bool = False):
     """Build the stacked-trainer step.
 
-    ``attack`` is a spec string (``core.attacks.get_attack``); ``attack_f``
-    the number of rows it controls (defaults to ``rcfg.f``).  With
-    ``telemetry`` the metrics gain a ``"telemetry"`` dict of plan
+    ``attack`` is a spec string (``core.attacks.get_attack``, or a wire
+    attack of ``core.attacks.WIRE_ATTACKS``, which needs a codec);
+    ``attack_f`` the number of rows it controls (defaults to ``rcfg.f``).
+
+    ``codec`` (a ``repro_torch.comm`` spec such as ``"qsgd:bits=8"``)
+    puts a compressed wire between workers and aggregator: the workers
+    encode, a wire attack forges the encoded messages, the statistics run
+    on the container (K5 under ``use_kernels``) and the apply on the rows
+    decoded into the gradient stack.  An ``ef=1`` codec threads its
+    residual through ``state.cres`` (:func:`init_train_state`).
+
+    With ``telemetry`` the metrics gain a ``"telemetry"`` dict of plan
     diagnostics (``selection``, ``byz_mass``, score fields) plus
-    ``honest_dev``.
+    ``honest_dev`` and, under a codec, ``wire_bytes_per_worker``.
     """
     rcfg.validate()
     f_eff = rcfg.f if attack_f is None else attack_f
     if not 0 <= f_eff <= rcfg.f:
         raise ValueError(
             f"attack_f must be in [0, f] (attack_f={f_eff}, f={rcfg.f})")
-    attack_fn = ATK.get_attack(attack)
+    codec_obj = _resolve_codec(codec)
+    wire = ATK.is_wire_attack(attack)
+    if wire and codec_obj is None:
+        raise ValueError(
+            f"wire attack {attack!r} needs a codec= wire to attack "
+            f"(available codecs: {list(CM.available_codecs())})")
+    attack_fn = ATK.get_wire_attack(attack) if wire else \
+        ATK.get_attack(attack)
     # telemetry wants the score spectrum even for distance-free rules
     backend = api.AggregatorBackend.for_config(rcfg, needs_dists=telemetry)
 
     def step(params, state: TrainerState, batch, seed: int = 0):
         losses, grads = per_worker_grads(params, cfg, batch, window=window,
                                          chunk_q=chunk_q)
-        grads = inject_byzantine(grads, f_eff, attack_fn, seed)
+        if not wire:
+            grads = inject_byzantine(grads, f_eff, attack_fn, seed)
+        enc, cres = None, state.cres
         with torch.no_grad():
-            stats = backend.stats(grads)
+            if codec_obj is not None:
+                enc, cres = codec_obj.encode(
+                    grads, seed=ATK.fold_seed(seed, ENCODE_STREAM),
+                    residual=cres)
+                if wire:
+                    enc = inject_wire(enc, f_eff, attack_fn, seed)
+                # what survived the wire, decoded into the stack (the
+                # residual is already formed); statistics come straight
+                # off the container
+                grads = codec_obj.decode(enc, out=grads)
+            stats = backend.stats(grads if enc is None else enc)
             plan = backend.plan(stats)
             agg = backend.apply(plan, grads)
             lr = lr_fn(state.opt.step)
@@ -172,8 +252,10 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                 # captured mass over the rows the attack holds (f_eff)
                 diag["byz_mass"] = torch.sum(diag["selection"][:f_eff])
                 diag["honest_dev"] = _honest_mean_dev(agg, grads, f_eff)
+                if enc is not None:
+                    diag["wire_bytes_per_worker"] = enc.bytes_per_worker
                 metrics["telemetry"] = diag
-        new_state = dataclasses.replace(state, opt=new_opt)
+        new_state = dataclasses.replace(state, opt=new_opt, cres=cres)
         return tree_map(lambda p: p.detach(), new_params), new_state, metrics
 
     return step

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C entry point and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library at first use, loaded
-with ``ctypes``.  Libraries are named by a hash of their source and flags,
-so an edited source is rebuilt and an unchanged one is reused.  The build
+with ``ctypes``.  Libraries are named by a hash of their source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused.  The build
 directory is ``repro_torch/_build`` (ignored by git).  Nothing here runs
 at import: the CPU tests import every module of the port.
 """
@@ -22,7 +23,7 @@ from typing import Dict, Sequence, Tuple
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("pairwise_stats", "fused_select")
+KERNELS = ("pairwise_stats", "fused_select", "dequant_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

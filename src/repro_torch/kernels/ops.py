@@ -12,11 +12,14 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.dequant_stats import (check_dequant_args,
+                                               dequant_stats_cuda)
 from repro_torch.kernels.fused_select import check_select_args, fused_select_cuda
 from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
 
 _WRAPPERS = {"pairwise_stats": pairwise_stats_cuda,
-             "fused_select": fused_select_cuda}
+             "fused_select": fused_select_cuda,
+             "dequant_stats": dequant_stats_cuda}
 
 
 def pairwise_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -28,6 +31,17 @@ def pairwise_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return ref.pairwise_stats_ref(x)
     return pairwise_stats_cuda(x)
+
+
+def dequant_stats(payload: torch.Tensor, mult: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused dequantize -> single-pass stats: (n, d) int8 / bf16 / fp32
+    payload + (n,) fp32 row multipliers -> (raw (n, n) sq-dists, (n,)
+    sq-norms) of the decoded rows ``payload.float() * mult[:, None]``."""
+    check_dequant_args(payload, mult)
+    if payload.device.type == "cpu":
+        return ref.dequant_stats_ref(payload, mult)
+    return dequant_stats_cuda(payload, mult)
 
 
 def fused_select(x: torch.Tensor, w_ext: torch.Tensor, w_agr: torch.Tensor,

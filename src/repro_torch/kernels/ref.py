@@ -20,18 +20,41 @@ def pairwise_stats_ref(x: Tensor, *, chunk: int = 1 << 20
 
     Raw: unclamped, diagonal kept, so contributions accumulate across
     leaves before ``core.api.finalize_dists`` (the JAX ``_stats_tile``
-    formula, in its operation order).  The norms and the gram are summed
-    over ``chunk``-column pieces: one GEMM over hundreds of millions of
-    columns loses about 1e-4 of the gram's diagonal in fp32 on a GPU,
-    while the per-piece sums keep the error near 1e-6.
+    formula, in its operation order, in fp32).  The norms and the gram
+    are accumulated in float64 over ``chunk``-column pieces and rounded
+    once to fp32 before that formula.  In fp32 the two sums drift apart
+    on long rows (one GEMM over hundreds of millions of columns loses
+    about 1e-4 of the gram's diagonal on a GPU; on real gradient leaves a
+    GEMM and a sum over 8e5 columns differ by 1e-5 of the largest norm),
+    and the formula turns that drift into a distance between two equal
+    rows.  Rounded once, each sum is within half an fp32 ulp of the exact
+    one, and equal rows give exactly 0.
     """
+    return _stats_over_pieces(x, lambda xc: xc.float(), chunk)
+
+
+def dequant_stats_ref(payload: Tensor, mult: Tensor, *, chunk: int = 1 << 20
+                      ) -> Tuple[Tensor, Tensor]:
+    """(n, d) int8 / bf16 / fp32 payload + (n,) fp32 row multipliers ->
+    :func:`pairwise_stats_ref` of the decoded rows
+    ``payload.float() * mult[:, None]``, decoded one ``chunk``-column piece
+    at a time (the pieces are those of ``pairwise_stats_ref``, so the
+    result equals it on the decoded stack bit for bit)."""
+    m = mult.float()[:, None]
+    return _stats_over_pieces(payload, lambda pc: pc.float() * m, chunk)
+
+
+def _stats_over_pieces(x: Tensor, decode, chunk: int
+                       ) -> Tuple[Tensor, Tensor]:
     n, d = x.shape
-    sq = torch.zeros((n,), dtype=torch.float32, device=x.device)
-    gram = torch.zeros((n, n), dtype=torch.float32, device=x.device)
+    sq = torch.zeros((n,), dtype=torch.float64, device=x.device)
+    gram = torch.zeros((n, n), dtype=torch.float64, device=x.device)
     for c0 in range(0, d, chunk):
-        xc = x[:, c0:c0 + chunk].float()
+        # decoded in fp32 (the wire's decode), widened exactly
+        xc = decode(x[:, c0:c0 + chunk]).double()
         sq = sq + torch.sum(xc * xc, dim=1)
         gram = gram + xc @ xc.T
+    sq, gram = sq.float(), gram.float()
     return sq[:, None] + sq[None, :] - 2.0 * gram, sq
 
 

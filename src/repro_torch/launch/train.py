@@ -11,6 +11,8 @@ Usage:
       --attack inf
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 3 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --layers 2 --steps 3 --codec qsgd:bits=8 --attack scale_poison
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import models as MD
+from repro_torch.comm import wire_stats
 from repro_torch.configs import ARCH_NAMES, RobustConfig, get_config
 from repro_torch.data import lm_batches
 from repro_torch.device import resolve_device
@@ -45,6 +48,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--f", type=int, default=2)
     ap.add_argument("--gar", default="multi_bulyan")
     ap.add_argument("--attack", default="none")
+    ap.add_argument("--codec", default=None,
+                    help="wire codec spec (repro_torch.comm): qsgd:bits=8, "
+                         "bf16, signsgd, topk:frac=0.01[,ef=1], fp32; "
+                         "attacks then hit the wire format (scale_poison, "
+                         "payload_flip are wire-level attacks)")
     ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="route stats + bulyan apply through the CUDA "
@@ -61,7 +69,10 @@ def run(argv: Optional[Sequence[str]] = None
         ) -> Tuple[Any, List[Dict[str, Any]]]:
     """Train as the flags say.  Returns the final parameters and one record
     per step (``loss``, ``loss_per_worker``, ``byz_mass``, ``honest_dev``,
-    ``agg_grad_norm``, ``lr``, ``seconds``)."""
+    ``agg_grad_norm``, ``lr``, ``seconds``; under a codec also
+    ``wire_bytes_per_worker`` and, with ``ef=1``, ``residual_max_abs``,
+    the largest magnitude in the error-feedback residual after the
+    step)."""
     args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -74,21 +85,31 @@ def run(argv: Optional[Sequence[str]] = None
     rcfg = RobustConfig(n_workers=args.workers, f=args.f, gar=args.gar,
                         use_kernels=args.use_kernels)
     device = resolve_device(args.device)
+    opt = make_optimizer(args.optimizer,
+                         **({"momentum": 0.9} if args.optimizer == "sgd"
+                            else {}))
+    lr_fn = warmup_cosine(args.lr, warmup=max(args.steps // 20, 1),
+                          total_steps=args.steps)
+    # validates the attack and codec specs (a wire attack needs a codec)
+    # before the model is built
+    step_fn = make_train_step(cfg, rcfg, opt, lr_fn,
+                              chunk_q=min(args.seq, 512),
+                              attack=args.attack, codec=args.codec,
+                              telemetry=True)
     params = MD.init_model(cfg, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} "
           f"params={n_params:,} device={device} workers={args.workers} "
           f"f={args.f} gar={args.gar} attack={args.attack} "
-          f"kernels={args.use_kernels}", flush=True)
-    opt = make_optimizer(args.optimizer,
-                         **({"momentum": 0.9} if args.optimizer == "sgd"
-                            else {}))
-    state = init_train_state(opt, params)
-    lr_fn = warmup_cosine(args.lr, warmup=max(args.steps // 20, 1),
-                          total_steps=args.steps)
-    step_fn = make_train_step(cfg, rcfg, opt, lr_fn,
-                              chunk_q=min(args.seq, 512),
-                              attack=args.attack, telemetry=True)
+          f"codec={args.codec} kernels={args.use_kernels}", flush=True)
+    if args.codec:
+        ws = wire_stats(args.codec, params, n=args.workers)
+        print(f"[train] wire: {ws.bytes_per_worker:,} B/worker/step "
+              f"({ws.compression:.1f}x vs fp32, "
+              f"{ws.chunks_per_worker} chunk(s) of {ws.chunk_bytes:,} B)",
+              flush=True)
+    state = init_train_state(opt, params, n_workers=args.workers,
+                             codec=args.codec)
     data = lm_batches(cfg.vocab_size, args.workers * args.per_worker_batch,
                       args.seq, seed=args.seed)
     history: List[Dict[str, Any]] = []
@@ -107,6 +128,11 @@ def run(argv: Optional[Sequence[str]] = None
                "honest_dev": float(tel["honest_dev"]),
                "agg_grad_norm": float(metrics["agg_grad_norm"]),
                "lr": float(metrics["lr"]), "seconds": seconds}
+        if "wire_bytes_per_worker" in tel:
+            rec["wire_bytes_per_worker"] = tel["wire_bytes_per_worker"]
+        if state.cres is not None:
+            rec["residual_max_abs"] = max(
+                float(torch.max(torch.abs(r))) for r in tree_leaves(state.cres))
         history.append(rec)
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"[train] step {i:5d} loss {rec['loss']:.4f} "

@@ -35,7 +35,9 @@ def loss_fn(params: Tree, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 def params_from_jax(tree: Tree, *, device: Optional[Union[str, torch.device]]
                     = None) -> Tree:
     """A JAX parameter tree (nested dicts of arrays, converted with
-    ``numpy.asarray``) as the port's tree: same keys, same layouts, fp32."""
+    ``numpy.asarray``) as the port's tree: same keys, same layouts, fp32.
+    It carries any fp32 tree across, such as the trainer's error-feedback
+    residual; ``comm.codecs.encoded_from_jax`` carries a wire container."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(
         np.array(a, dtype=np.float32)).to(dev), tree)

@@ -1,6 +1,7 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
-CPU: fail-fast probes before any step, and the paper's contrast under the
-``inf`` attack (finite under multi_bulyan, blown up under average)."""
+CPU: fail-fast probes before any step, the paper's contrast under the
+``inf`` attack (finite under multi_bulyan, blown up under average), and
+the compressed wire (``--codec``) with its byte line held to JAX's."""
 import math
 import os
 import subprocess
@@ -86,3 +87,55 @@ def test_module_entry_point_fails_fast_in_a_subprocess():
     assert res.returncode != 0
     assert "requires n >= 4f+3" in res.stderr
     assert "[train] step" not in res.stdout
+
+
+def test_codec_run_prints_jax_wire_bytes_and_rejects_the_attack(capsys):
+    """--codec qsgd:bits=8 --attack scale_poison: finite losses, no
+    selection mass on the forged rows, and the wire line's byte count is
+    the JAX package's wire_stats for the same parameter shapes."""
+    import jax
+    from repro import models as JMD
+    from repro.comm import wire_stats
+    from repro.configs import get_config as jget
+    (_, hist), out = _run(capsys, "--steps", "2", "--workers", "11",
+                          "--f", "2", "--codec", "qsgd:bits=8",
+                          "--attack", "scale_poison")
+    shapes = jax.eval_shape(lambda: JMD.init_model(
+        jax.random.key(0), jget("qwen2-1.5b").reduced()))
+    ws = wire_stats("qsgd:bits=8", shapes, n=11)
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("[train] wire:"))
+    assert line.startswith(f"[train] wire: {ws.bytes_per_worker:,} "
+                           f"B/worker/step ({ws.compression:.1f}x vs fp32")
+    for rec in hist:
+        assert math.isfinite(rec["loss"]) and rec["byz_mass"] == 0.0
+        assert rec["wire_bytes_per_worker"] == ws.bytes_per_worker
+
+
+def test_wire_attack_without_a_codec_is_refused_as_in_jax(capsys):
+    from repro.configs.base import ArchConfig, RobustConfig
+    from repro.dist import make_train_step
+    from repro.optim import constant, sgd
+    with pytest.raises(ValueError, match="needs a codec= wire to attack"):
+        make_train_step(ArchConfig(name="t", family="dense"),
+                        RobustConfig(n_workers=11, f=2), sgd(),
+                        constant(0.1), attack="scale_poison")
+    with pytest.raises(ValueError, match="needs a codec= wire to attack"):
+        _run(capsys, "--attack", "scale_poison")
+    assert "[train] arch" not in capsys.readouterr().out
+
+
+def test_unknown_codec_lists_the_available_ones(capsys):
+    with pytest.raises(KeyError, match="unknown codec 'zstd'") as e:
+        _run(capsys, "--codec", "zstd")
+    for name in ("bf16", "qsgd", "signsgd", "topk", "identity"):
+        assert name in str(e.value)
+    assert "[train] step" not in capsys.readouterr().out
+
+
+def test_error_feedback_run_records_a_nonzero_residual(capsys):
+    (_, hist), _ = _run(capsys, "--steps", "2", "--codec", "signsgd:ef=1",
+                        "--attack", "payload_flip")
+    for rec in hist:
+        assert math.isfinite(rec["loss"])
+        assert 0.0 < rec["residual_max_abs"] < math.inf

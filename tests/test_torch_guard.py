@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and the
-smoke script refuses to run without a card or outside a checkout."""
+``chip_smoke.py`` or ``tools/time_k1.py`` imports ``jax`` or the JAX
+package ``repro``, and the smoke script refuses to run without a card or
+outside a checkout."""
 import ast
 import os
 import pathlib
@@ -12,7 +13,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "tools" / "time_k1.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -39,6 +41,16 @@ def test_no_jax_or_reference_import(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def test_the_wire_package_is_covered():
+    """The compressed wire (``repro_torch.comm``) and the K5 wrapper are
+    among the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("comm/__init__.py", "comm/codecs.py", "comm/container.py",
+                 "comm/transport.py", "kernels/dequant_stats.py"):
+        want = f"src/repro_torch/{want}"
+        assert want in names
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -54,7 +66,7 @@ def test_importing_every_port_module_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 25      # every module was imported
+    assert int(res.stdout.strip()) >= 37      # every module was imported
 
 
 def test_chip_smoke_alone_fails_without_a_result(tmp_path):

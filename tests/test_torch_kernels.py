@@ -1,4 +1,4 @@
-"""K1 (pairwise_stats) and K2 (fused_select) of the port.
+"""K1 (pairwise_stats), K2 (fused_select) and K5 (dequant_stats) of the port.
 
 On the CPU the plain PyTorch versions (``repro_torch.kernels.ref``) are
 held to the Pallas kernels run in interpret mode, over the edge grid of
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import gar as TG
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.dequant_stats import dequant_stats_cuda
 from repro_torch.kernels.fused_select import MAX_THETA, fused_select_cuda
 from repro_torch.kernels.pairwise_sqdist import (launch_config,
                                                  pairwise_stats_cuda)
@@ -85,13 +86,22 @@ def test_pairwise_stats_plain_matches_pallas(jx, n, d):
 
 def test_pairwise_stats_raw_contract_keeps_the_diagonal():
     """Raw: sq_i + sq_j - 2 gram with no clamp and no zeroed diagonal
-    (finalised once, after the sum over leaves)."""
+    (finalised once, after the sum over leaves).  The sums are rounded
+    once, so a finite row's own entry is exactly 0: the diagonal shows
+    itself kept where a row holds inf (inf - inf = NaN, not 0), and the
+    missing clamp where the fp32 formula on exact sums is negative."""
     x = _x(5, 300, seed=1).astype(np.float64)
     raw, sq = ref.pairwise_stats_ref(_t(x))
     sq64 = np.sum(x * x, axis=1)
     _close(raw.numpy(), sq64[:, None] + sq64[None, :] - 2.0 * (x @ x.T))
     _close(sq.numpy(), sq64)
-    assert np.any(np.diag(raw.numpy()) != 0.0)
+    # exact: 0.01; the sums round to 2^24, 2^24 + 2 and 2^24 + 2
+    raw, _ = ref.pairwise_stats_ref(_t([[4096.0, 1.0], [4096.0, 1.1]]))
+    assert float(raw[0, 1]) < 0.0
+    z = np.ones((3, 4), np.float32)
+    z[1, 2] = np.inf
+    raw, _ = ref.pairwise_stats_ref(_t(z))
+    assert np.isnan(float(raw[1, 1])) and float(raw[0, 0]) == 0.0
 
 
 def test_pairwise_stats_plain_chunks_agree():
@@ -107,7 +117,8 @@ def test_ops_pairwise_stats_takes_plain_version_on_cpu():
     x = _t(_x(11, 100, seed=2))
     for a, b in zip(ops.pairwise_stats(x), ref.pairwise_stats_ref(x)):
         assert torch.equal(a, b)
-    assert ops.launch_counts() == {"pairwise_stats": 0, "fused_select": 0}
+    assert ops.launch_counts() == {"pairwise_stats": 0, "fused_select": 0,
+                                   "dequant_stats": 0}
 
 
 @pytest.mark.parametrize("n,d,want", [
@@ -246,3 +257,30 @@ def test_k2_kernel_matches_plain_on_card(card, n, f, d):
     want = ref.fused_select_ref(x, we, wa, beta)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 3, 11, 13, 37, 150])
+@pytest.mark.parametrize("d", [1, 4095, 100_003])
+def test_k5_kernel_equals_k1_on_decoded_on_card(card, n, d, dtype):
+    """K5 on a payload == K1 on payload.float() * mult, bit for bit (the
+    same template, grid and chunk order), and within K1's tolerance of
+    the plain version; row 0 carries a negative multiplier."""
+    rng = np.random.default_rng(n * 7 + d)
+    if dtype == torch.int8:
+        p = torch.from_numpy(rng.integers(-127, 128, size=(n, d))
+                             .astype(np.int8)).to(card)
+    else:
+        p = _t(_x(n, d, seed=n + d)).to(dtype).to(card)
+    mult = _t((rng.random(n) + 0.5) / 127.0).to(card)
+    mult[0] = -100.0 * mult[0]
+    got_d, got_s = dequant_stats_cuda(p, mult)
+    k1_d, k1_s = pairwise_stats_cuda(p.float() * mult[:, None])
+    want_d, want_s = ref.dequant_stats_ref(p, mult)
+    torch.cuda.synchronize()
+    assert torch.equal(got_d, k1_d) and torch.equal(got_s, k1_s)
+    scale = max(1.0, 2.0 * float(want_s.max()))
+    np.testing.assert_allclose(got_d.cpu().numpy(), want_d.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * scale)
+    _close(got_s.cpu().numpy(), want_s.cpu().numpy())
