@@ -28,29 +28,52 @@ Phases; any failure exits non-zero and no result line is printed:
    attack, SGD with momentum, seq 128, 2 sequences a worker, 3 steps,
    kernels on.  Every loss must be finite, the byzantine selection mass 0
    at every step, and K1 and K2 must each launch once per gradient leaf
-   per step, K5 never;
+   per step, K5 and K3 never;
 5. wire training A: the same configuration with ``--codec qsgd:bits=8
    --attack scale_poison``: finite losses, byzantine mass 0 at each step,
    the printed wire line at one byte a coordinate plus 4 a leaf, and K5
-   and K2 once per leaf per step, K1 never;
+   and K2 once per leaf per step, K1 and K3 never;
 6. wire training B: ``--codec signsgd:ef=1 --attack payload_flip`` for 2
    steps at 1 layer: finite losses, a finite non-zero error-feedback
-   residual after each step, K5 and K2 once per leaf per step, K1 never;
+   residual after each step, K5 and K2 once per leaf per step, K1 and K3
+   never;
 7. K5 on a real wire-A container (one batch's gradients, QSGD-encoded,
    forged by ``scale_poison``): every leaf checked as in phase 3, and no
    plan mass on the forged rows;
-8. timing at the main path's leaf shapes (one launch per leaf, summed over
+8. K3 ``coord_select`` against its plain version, bit for bit: (theta,
+   beta) in {(5,1), (8,2), (16,4), (30,10), (7,7), (32,1)} x d in {1,
+   4095, 100003, 1000000}, the embedding leaf at theta = 16 (theta x d >
+   2^31), all-ties cases, and beta = theta (also within 1e-6 of the mean);
+9. the two-step apply substrate on one batch's real gradients (training
+   configuration, ``inf`` attack), ``fused=False`` and ``fused=False,
+   coord_chunk=2**24``: K3 once per leaf or per column slice, K2 never,
+   every K3 launch bit for bit equal to its plain version on the g_ext /
+   g_agr the substrate formed; against the fused apply (K2) every
+   coordinate more than 1e-6 x max(1, |fused|) apart must be a near-tie
+   (recomputed in float64: the beta-th and (beta+1)-th smallest distances
+   to the median, or two neighbouring middle extracted values, within
+   1e-5 of each other relative to the values they come from), and their
+   number is printed;
+10. training with transforms: ``make_train_step(transforms=
+   (WorkerMomentum(0.9), NearestNeighborMix(3)))`` at the training
+   configuration with the ``inf`` attack, 3 steps: finite losses, finite
+   honest momentum rows, the byzantine mass printed (not gated), and per
+   step K1 2 x 14 times, K2 14 times, K3 and K5 never;
+11. timing at the main path's leaf shapes (one launch per leaf, summed over
    the leaves of one step; median of repeats, CUDA events), K5 on int8
    and bf16 payloads beside decode + K1, each payload also checked as in
-   phase 3;
-9. profile: one more steady-state step of the uncompressed configuration
+   phase 3; K3 at theta = 5 on the products of the synthetic stack and
+   its plan (checked bit for bit), its plain version, the two products
+   and the whole two-step apply beside K2;
+12. profile: one more steady-state step of the uncompressed configuration
    and one of wire A under ``torch.profiler``: device-busy share and the
-   kernels that take the most device time;
-10. the ``kernels`` JSON line, then the last line:
+   kernels that take the most device time; and (in phase 11) one
+   two-step apply over the timed leaves;
+13. the ``kernels`` JSON line, then the last line:
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are read per phase: every count is set to 0 just before a
-training phase and read just after it.
+training phase or a substrate's apply and read just after it.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
@@ -78,6 +101,10 @@ HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12               # H100 SXM data sheet, non-tensor fp32
 K5_NS = (1, 3, 11, 13, 37, 150)
 K5_WIDTHS = (1, 4095, 100_003)
+K3_GRID = ((5, 1), (8, 2), (16, 4), (30, 10), (7, 7), (32, 1))
+COORD_CHUNK = 2 ** 24
+TIE_TOL = 1e-5
+TRANSFORM_STEPS = 3
 TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--layers", "2", "--steps", "3",
               "--seq", "128", "--per-worker-batch", "2", "--workers", str(N),
               "--f", str(F), "--gar", "multi_bulyan", "--attack", "inf",
@@ -360,6 +387,247 @@ def real_wire_k5(torch, worst):
     ops.reset_launch_counts()
 
 
+def coord_inputs(torch, theta, d, seed, ties=False):
+    """(theta, d) g_ext and g_agr on the card, N(0, 1) noise; with
+    ``ties`` every g_agr value lies 1 from the median 0 (rows alternate
+    +1 / -1, so the tie order shows in the result)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    ge = torch.empty((theta, d), dtype=torch.float32, device="cuda")
+    ga = torch.empty_like(ge)
+    ge.normal_(generator=gen)
+    ga.normal_(generator=gen)
+    if ties:
+        ge.zero_()
+        ga.fill_(1.0)
+        ga[1::2] = -1.0
+    return ge, ga
+
+
+def k3_vs_plain(torch):
+    """K3 against its plain version, bit for bit: (theta, beta) over
+    K3_GRID x d over CHECK_WIDTHS, the embedding leaf at theta = 16
+    (theta * d > 2^31), an all-ties case, and beta = theta (the mean, also
+    held to ``torch.mean`` within 1e-6).  Returns the largest |K3 - plain|
+    (0 when every case is bitwise)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.coord_select import coord_select_cuda
+    cases = [(t, b, d, False) for t, b in K3_GRID for d in CHECK_WIDTHS]
+    cases += [(16, 4, EMBED_WIDTH, False), (6, 3, 100_003, True),
+              (6, 6, 100_003, True)]
+    worst = 0.0
+    for theta, beta, d, ties in cases:
+        ge, ga = coord_inputs(torch, theta, d, seed=theta * 1000 + d,
+                              ties=ties)
+        got = coord_select_cuda(ge, ga, beta)
+        want = ref.coord_select_ref(ge, ga, beta)
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(got - want)))
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"K3 theta={theta} beta={beta} d={d}"
+              f"{' ties' if ties else ''}: differs from its plain version "
+              f"(max abs {err:.3e})")
+        if beta == theta:
+            mean = torch.mean(ga, dim=0)
+            e_m = float(torch.max(torch.abs(got - mean)))
+            check(e_m <= K2_TOL * max(1.0, float(torch.max(torch.abs(mean)))),
+                  f"K3 beta=theta={theta} d={d}: {e_m:.3e} from the mean")
+        del ge, ga, got, want
+        torch.cuda.empty_cache()
+    log(f"K3: {len(cases)} cases bit for bit equal to the plain version "
+        f"(theta, beta in {list(K3_GRID)} x d in {list(CHECK_WIDTHS)}, the "
+        f"embedding leaf at theta=16, ties, beta = theta)")
+    ops.reset_launch_counts()
+    return worst
+
+
+def real_gradients(torch, layers=2):
+    """One batch's (N, ...) gradient stack at the training phase's
+    configuration, with the ``inf`` attack on the first F rows."""
+    from repro_torch import models as MD
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.dist import inject_byzantine, per_worker_grads, \
+        split_workers
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=layers)
+    params = MD.init_model(cfg, seed=0, device="cuda")
+    batch = {k: v.to("cuda") for k, v in split_workers(
+        next(lm_batches(cfg.vocab_size, 2 * N, 128, seed=0)), N).items()}
+    _, grads = per_worker_grads(params, cfg, batch, chunk_q=128)
+    del params
+    with torch.no_grad():
+        inject_byzantine(grads, F, "inf", seed=0)
+    return grads
+
+
+def near_ties(torch, x, plan, idx):
+    """For the columns ``idx`` of an (N, m) leaf, recomputed in float64
+    from the stack and the plan: True where the selection sits at a
+    near-tie, i.e. the beta-th and (beta+1)-th smallest distances to the
+    median, or two neighbouring extracted values around the middle, lie
+    within TIE_TOL of each other relative to the values they are formed
+    from.  Returns a bool tensor over ``idx``."""
+    xs = x[:, idx].double()
+    ext = plan.w_ext.double() @ xs                          # (theta, k)
+    agr = plan.w_agr.double() @ xs
+    theta, beta = ext.shape[0], plan.beta
+    srt = torch.sort(ext, dim=0).values
+    h = theta // 2
+    med = srt[h] if theta % 2 else 0.5 * (srt[h - 1] + srt[h])
+    tie = torch.zeros(len(idx), dtype=torch.bool, device=x.device)
+    lo, hi = (h - 1, h) if theta % 2 else (h - 2, h)
+    for a in range(max(lo, 0), min(hi, theta - 1) + 1):
+        size = torch.maximum(srt[a].abs(), srt[a + 1].abs())
+        tie |= (srt[a + 1] - srt[a]) <= TIE_TOL * size
+    if beta < theta:
+        dist = torch.sort(torch.abs(agr - med[None]), dim=0).values
+        size = torch.maximum(torch.max(agr.abs(), dim=0).values, med.abs())
+        tie |= (dist[beta] - dist[beta - 1]) <= TIE_TOL * size
+    return tie
+
+
+def two_step_substrate(torch):
+    """The two-step apply on one step's real gradients (the training
+    phase's configuration, ``inf`` attack), against the fused one.
+
+    Every launch count is set to 0 just before each apply and read just
+    after: ``fused=False`` must launch K3 once per leaf, with
+    ``coord_chunk`` once per column slice, and K2 never.  Every K3 launch
+    is held bit for bit to ``coord_select_ref`` on the very g_ext / g_agr
+    the substrate formed.  Against the fused apply (K2), every coordinate
+    more than 1e-6 x max(1, |fused|) apart must be a near-tie
+    (:func:`near_ties`).  Returns (the fused=False counts, the number of
+    K3 launches held to the plain version)."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ops, ref
+    from repro_torch.tree import tree_leaves
+    grads = real_gradients(torch)
+    leaves = [x.reshape(N, -1) for x in tree_leaves(grads)]
+    numels = [x.shape[1] for x in leaves]
+    fused = api.AggregatorBackend("multi_bulyan", F)
+    with torch.no_grad():
+        plan = fused.plan(fused.stats(grads))
+        byz = float(torch.sum(plan.selection_weights()[:F]))
+        check(byz == 0.0, f"two-step substrate: byzantine plan mass {byz}")
+        out_f = [o.reshape(-1) for o in tree_leaves(fused.apply(plan, grads))]
+    real_k3 = ops.coord_select
+    held = []
+
+    def k3_held_to_plain(g_ext, g_agr, beta):
+        got = real_k3(g_ext, g_agr, beta)
+        want = ref.coord_select_ref(g_ext, g_agr, beta)
+        check(torch.equal(got, want), f"K3 on the substrate's "
+              f"{tuple(g_ext.shape)} inputs differs from its plain version")
+        held.append(tuple(g_ext.shape))
+        return got
+
+    result = {}
+    for label, chunk in (("fused=False", 0),
+                         (f"fused=False coord_chunk={COORD_CHUNK}",
+                          COORD_CHUNK)):
+        backend = api.AggregatorBackend("multi_bulyan", F, fused=False,
+                                        coord_chunk=chunk)
+        ops.coord_select = k3_held_to_plain
+        try:
+            with torch.no_grad():
+                ops.reset_launch_counts()
+                out = backend.apply(plan, grads)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+        finally:
+            ops.coord_select = real_k3
+        slices = sum(-(-m // chunk) if chunk and m > chunk else 1
+                     for m in numels)
+        want = {"pairwise_stats": 0, "fused_select": 0, "dequant_stats": 0,
+                "coord_select": slices}
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        n_diff = n_tie = 0
+        for x, o2, of in zip(leaves, tree_leaves(out), out_f):
+            o2 = o2.reshape(-1)
+            check(bool(torch.isfinite(o2).all()), f"{label}: non-finite")
+            bad = torch.abs(o2 - of) > K2_TOL * torch.clamp(of.abs(), min=1.0)
+            idx = torch.nonzero(bad).reshape(-1)
+            n_diff += len(idx)
+            for c0 in range(0, len(idx), 1 << 16):
+                tie = near_ties(torch, x, plan, idx[c0:c0 + (1 << 16)])
+                n_tie += int(tie.sum())
+        check(n_diff == n_tie, f"{label}: {n_diff - n_tie} of {n_diff} "
+              f"differing coordinates are not near-ties")
+        log(f"two-step {label}: launches {counts} ({len(numels)} leaves, "
+            f"{slices} column slices), every K3 launch bit for bit equal to "
+            f"its plain version; {n_diff} of {sum(numels):,} coordinates "
+            f"differ from the fused apply by more than {K2_TOL} x max(1, "
+            f"|fused|), all near-ties")
+        result[chunk] = (counts, n_diff)
+        del out
+    del grads, leaves, out_f
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return result[0][0], len(held), {k: v[1] for k, v in result.items()}
+
+
+def transform_training(torch):
+    """``make_train_step(transforms=(WorkerMomentum(0.9),
+    NearestNeighborMix(3)))`` at the training phase's configuration with
+    the ``inf`` attack for TRANSFORM_STEPS steps: finite losses, finite
+    honest rows of the momentum state, the byzantine mass printed (not
+    gated: nn_mix turns a forged row into a mean of honest rows, which the
+    rule may pick), and per step K1 twice per leaf (nn_mix's statistics
+    and the plan's), K2 once, K3 and K5 never."""
+    from repro_torch import models as MD
+    from repro_torch.configs import RobustConfig, get_config
+    from repro_torch.core import api
+    from repro_torch.data import lm_batches
+    from repro_torch.dist import (init_train_state, make_train_step,
+                                  split_workers)
+    from repro_torch.kernels import ops
+    from repro_torch.optim import constant, sgd
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
+    rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan")
+    opt = sgd(momentum=0.9)
+    transforms = (api.WorkerMomentum(0.9), api.NearestNeighborMix(3))
+    params = MD.init_model(cfg, seed=0, device="cuda")
+    leaves = len(tree_leaves(params))
+    state = init_train_state(opt, params, transforms, n_workers=N)
+    step = make_train_step(cfg, rcfg, opt, constant(0.05), chunk_q=128,
+                           attack="inf", transforms=transforms,
+                           telemetry=True)
+    data = lm_batches(cfg.vocab_size, 2 * N, 128, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, byz, secs = [], [], []
+    ops.reset_launch_counts()
+    for i in range(TRANSFORM_STEPS):
+        wb = {k: v.to("cuda") for k, v in split_workers(next(data),
+                                                         N).items()}
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, wb, i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        byz.append(float(m["telemetry"]["byz_mass"]))
+        check(math.isfinite(losses[-1]) and bool(
+            torch.isfinite(m["loss_per_worker"]).all()),
+            f"transforms step {i}: non-finite loss {losses[-1]}")
+        check(all(bool(torch.isfinite(x[F:]).all())
+                  for x in tree_leaves(state.tstates[0])),
+              f"transforms step {i}: non-finite honest momentum")
+    counts = ops.launch_counts()
+    want = {"pairwise_stats": 2 * leaves * TRANSFORM_STEPS,
+            "fused_select": leaves * TRANSFORM_STEPS, "dequant_stats": 0,
+            "coord_select": 0}
+    check(counts == want, f"transforms: launches {counts}, want {want}")
+    check(state.tstates[1] is None, "transforms: nn_mix grew a state")
+    log(f"transforms (worker_momentum 0.9, nn_mix 3; inf): losses "
+        f"{[round(v, 4) for v in losses]}, byz_mass {byz} (logged, not "
+        f"gated), launches {counts} = {leaves} leaves x {TRANSFORM_STEPS} "
+        f"steps; step seconds {[round(v, 4) for v in secs]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, state, m
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+
+
 class Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -421,7 +689,8 @@ def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True):
 def training(torch):
     counts, shapes, history, _ = train_phase(
         torch, "training", TRAIN_ARGS,
-        {"pairwise_stats": 1, "fused_select": 1, "dequant_stats": 0})
+        {"pairwise_stats": 1, "fused_select": 1, "dequant_stats": 0,
+         "coord_select": 0})
     return counts, shapes, [rec["seconds"] for rec in history]
 
 
@@ -429,7 +698,8 @@ def wire_training(torch):
     """Phases A and B; returns phase A's counts (the wire's main path)."""
     counts, shapes, history, text = train_phase(
         torch, "wire A (qsgd:bits=8, scale_poison)", WIRE_A_ARGS,
-        {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1})
+        {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1,
+         "coord_select": 0})
     # qsgd:bits=8: one byte a coordinate plus one fp32 multiplier a leaf
     want = sum(math.prod(s[1:]) + 4 for s in shapes)
     line = next((ln for ln in text.splitlines()
@@ -441,8 +711,8 @@ def wire_training(torch):
     log(f"wire A: {line}")
     _, _, history_b, _ = train_phase(
         torch, "wire B (signsgd:ef=1, payload_flip)", WIRE_B_ARGS,
-        {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1},
-        zero_byz=False)
+        {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1,
+         "coord_select": 0}, zero_byz=False)
     res = [rec["residual_max_abs"] for rec in history_b]
     check(all(math.isfinite(r) and r > 0.0 for r in res),
           f"wire B: error-feedback residual max |r| per step {res}")
@@ -471,6 +741,7 @@ def timing(torch, shapes, worst_k5):
     every payload it is timed on, as in :func:`compare_k5`."""
     from repro_torch.core import api
     from repro_torch.kernels import ref
+    from repro_torch.kernels.coord_select import coord_select_cuda
     from repro_torch.kernels.dequant_stats import dequant_stats_cuda
     from repro_torch.kernels.fused_select import fused_select_cuda
     from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
@@ -481,8 +752,11 @@ def timing(torch, shapes, worst_k5):
         raw = raw + pairwise_stats_cuda(x)[0]
     plan = plan_of(raw)
     theta = plan.w_ext.shape[0]
-    tot = {k: 0.0 for k in ("k1", "k1_plain", "k1_lib", "k2", "k2_plain")}
-    bound = {k: {"bytes": 0.0, "operations": 0.0} for k in ("k1", "k2")}
+    tot = {k: 0.0 for k in ("k1", "k1_plain", "k1_lib", "k2", "k2_plain",
+                            "k3", "k3_plain", "matmuls", "two_step")}
+    bound = {k: {"bytes": 0.0, "operations": 0.0}
+             for k in ("k1", "k2", "k3", "matmuls")}
+    we, wa, beta = plan.w_ext, plan.w_agr, plan.beta
     for x in leaves:
         m = x.shape[1]
         reps = 5 if m > 10_000_000 else 20
@@ -502,6 +776,35 @@ def timing(torch, shapes, worst_k5):
         bound["k2"]["bytes"] += 4 * (N * m + m + 2 * theta * N) \
             / HBM_BYTES_PER_S
         bound["k2"]["operations"] += 4 * theta * N * m / FP32_FLOP_PER_S
+        # the two-step apply at theta = 5: the two products, K3 on what
+        # they formed (checked against its plain version), and the whole
+        # substrate as _bulyan_leaf runs it
+        ge, ga = torch.matmul(we, x), torch.matmul(wa, x)
+        check(torch.equal(coord_select_cuda(ge, ga, beta),
+                          ref.coord_select_ref(ge, ga, beta)),
+              f"K3 on timed leaf d={m}: differs from its plain version")
+        tot["k3"] += time_ms(torch, lambda: coord_select_cuda(ge, ga, beta),
+                             reps)
+        tot["k3_plain"] += time_ms(
+            torch, lambda: ref.coord_select_ref(ge, ga, beta), min(reps, 3))
+        del ge, ga
+        tot["matmuls"] += time_ms(
+            torch, lambda: (torch.matmul(we, x), torch.matmul(wa, x)), reps)
+        tot["two_step"] += time_ms(torch, lambda: api._bulyan_leaf(
+            we, wa, beta, x, use_kernels=True, fused=False), reps)
+        # K3: 2 theta values read and one written a coordinate; fp32
+        # operations: the two rank counts (theta^2 compares each), theta
+        # differences and abs values, beta adds, the midpoint and the
+        # division.  The products: the stack and a weight matrix read, theta
+        # rows written, 2 theta n flops a coordinate, each of the two.
+        bound["k3"]["bytes"] += 4 * (2 * theta * m + m) / HBM_BYTES_PER_S
+        bound["k3"]["operations"] += (2 * theta * theta + 2 * theta + beta
+                                      + 2) * m / FP32_FLOP_PER_S
+        bound["matmuls"]["bytes"] += 2 * 4 * (N * m + theta * N
+                                              + theta * m) / HBM_BYTES_PER_S
+        bound["matmuls"]["operations"] += 2 * 2 * theta * N * m \
+            / FP32_FLOP_PER_S
+    profile_two_step(torch, leaves, plan)
     del leaves
     torch.cuda.empty_cache()
     # K5 on the same leaf shapes, int8 then bf16 payloads (one type on the
@@ -534,6 +837,7 @@ def timing(torch, shapes, worst_k5):
     for k, b in bound.items():
         tot[f"{k}_bound_by"] = max(b, key=b.get)
         tot[f"{k}_bound"] = 1e3 * max(b.values())
+    tot["two_step_bound"] = tot["k3_bound"] + tot["matmuls_bound"]
     log(f"timing over {len(shapes)} leaves ({sum(numels):,} coordinates "
         f"x {N} workers), ms per step: " + ", ".join(
             f"{k} {v}" for k, v in tot.items()))
@@ -576,6 +880,12 @@ def profile_step(torch, label, attack, codec=None):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     del params, state
     torch.cuda.empty_cache()
+    log_profile(torch, prof, f"{label}: one step", wall_ms, 15)
+
+
+def log_profile(torch, prof, label, wall_ms, top):
+    """Device time summed by kernel name over a ``torch.profiler`` trace,
+    against ``wall_ms``; the ``top`` kernels by time."""
     per_kernel = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -584,12 +894,29 @@ def profile_step(torch, label, attack, codec=None):
             acc[1] += 1
     busy_ms = sum(v[0] for v in per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
-    log(f"profile {label}: one step {wall_ms:.1f} ms wall under the "
-        f"profiler, "
+    log(f"profile {label} {wall_ms:.1f} ms wall under the profiler, "
         f"kernels busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(v[1] for v in per_kernel.values())} kernel launches")
-    for name, (ms, count) in rows[:15]:
+    for name, (ms, count) in rows[:top]:
         log(f"  {ms:10.3f} ms {count:6d}x  {name[:100]}")
+
+
+def profile_two_step(torch, leaves, plan):
+    """One two-step apply over the timed leaves, traced: which kernels
+    form the products, beside K3."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import api
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in leaves:
+            api._bulyan_leaf(plan.w_ext, plan.w_agr, plan.beta, x,
+                             use_kernels=True, fused=False)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log_profile(torch, prof, "two-step apply (fused=False), 14 leaves:",
+                wall_ms, 6)
 
 
 def main():
@@ -620,6 +947,9 @@ def main():
         counts, shapes, step_s = training(torch)
         counts_wire, wire_s = wire_training(torch)
         real_wire_k5(torch, worst_k5)
+        worst_k3 = k3_vs_plain(torch)
+        counts_k3, held, n_diff = two_step_substrate(torch)
+        transform_training(torch)
         tot = timing(torch, shapes, worst_k5)
         log(f"K5 worst relative error over every check: "
             f"{worst_k5['max_rel']:.3e}")
@@ -629,6 +959,14 @@ def main():
                 f"({tot[f'k5_{t}_bound_by']}), plain "
                 f"{tot[f'k5_plain_{t}']:.4f}, decode + K1 "
                 f"{tot[f'k5_unfused_{t}']:.4f}")
+        log(f"two-step apply, ms per step: products {tot['matmuls']:.4f} "
+            f"(bound {tot['matmuls_bound']:.4f}) + K3 {tot['k3']:.4f} "
+            f"(bound {tot['k3_bound']:.4f}); whole substrate "
+            f"{tot['two_step']:.4f} (bound {tot['two_step_bound']:.4f}) "
+            f"against K2 {tot['k2']:.4f} (bound {tot['k2_bound']:.4f}): "
+            f"fusion win {tot['two_step'] / tot['k2']:.3f}x; {held} K3 "
+            f"launches on the real stack held to the plain version; "
+            f"coordinates at near-ties {n_diff}")
         profile_step(torch, "uncompressed (inf)", "inf")
         profile_step(torch, "wire A (qsgd:bits=8, scale_poison)",
                      "scale_poison", "qsgd:bits=8")
@@ -660,6 +998,14 @@ def main():
          "ms": tot["k5_int8"], "plain_ms": tot["k5_plain_int8"],
          "bound_ms": tot["k5_int8_bound"],
          "bound_by": tot["k5_int8_bound_by"], "library_ms": None},
+        {"name": "coord_select", "route": "cuda",
+         "source": "src/repro_torch/csrc/coord_select.cu",
+         "replaces": "src/repro/kernels/coord_select.py:50",
+         "launches": counts_k3["coord_select"],
+         "max_abs_err": worst_k3,
+         "ms": tot["k3"], "plain_ms": tot["k3_plain"],
+         "bound_ms": tot["k3_bound"], "bound_by": tot["k3_bound_by"],
+         "library_ms": None},
     ]
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
         f"{wire_s}")

@@ -8,8 +8,10 @@
 Every GAR is an :class:`Aggregator` registered by name with capability
 flags (``needs_dists``, ``min_n``).  Under ``use_kernels`` the statistics
 go through ``kernels.ops.pairwise_stats`` (K1) once per leaf and every
-bulyan leaf through ``kernels.ops.fused_select`` (K2): the CUDA kernels for
-CUDA tensors, their plain versions for CPU tensors.
+bulyan leaf through ``kernels.ops.fused_select`` (K2), or, on the two-step
+substrate (``fused=False`` or ``coord_chunk``), through two matrix
+products and ``kernels.ops.coord_select`` (K3): the CUDA kernels for CUDA
+tensors, their plain versions for CPU tensors.
 
 Gradient trees are nested dicts whose leaves carry the worker axis first;
 leaves are visited in sorted key-path order (``repro_torch.tree``), as JAX
@@ -18,17 +20,19 @@ flattens them, so cross-leaf fp32 sums associate as in the reference.
 The statistics and the apply accept a ``repro_torch.comm``
 :class:`EncodedGrads` wire container in place of the tree: statistics then
 run on the payloads (K5 under ``use_kernels`` for the int8 / bf16 leaves),
-and the apply decodes first.  The mesh and transform branches of the JAX
-module are not ported yet.
+and the apply decodes first.  The pre-aggregation transforms (worker
+momentum, clipping, nearest-neighbour mixing) rewrite the stack before the
+rule.  The mesh branch of the JAX module is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.comm.container import EncodedGrads
+from repro_torch.core import attacks as ATK
 from repro_torch.core import gar as G
 from repro_torch.core import theory
 from repro_torch.kernels import ops as kops
@@ -108,6 +112,12 @@ def raw_pairwise_stats(grads: Tree, *, use_kernels: bool = False
         total_d = total_d + dd
         total_s = total_s + sq
     return total_d, total_s
+
+
+def tree_pairwise_sqdist(grads: Tree, *, use_kernels: bool = False
+                         ) -> Tensor:
+    """Sum of per-leaf pairwise squared distances -> finalised (n, n)."""
+    return tree_pairwise_stats(grads, use_kernels=use_kernels)[0]
 
 
 def tree_pairwise_stats(grads: Tree, *, use_kernels: bool = False
@@ -215,13 +225,48 @@ def _weighted_mean_leaf(w: Tensor, leaf: Tensor) -> Tensor:
 
 
 def _bulyan_leaf(w_ext: Tensor, w_agr: Tensor, beta: int, leaf: Tensor,
-                 use_kernels: bool = False) -> Tensor:
-    """Extraction plan + coordinate phase on one leaf.  Under
-    ``use_kernels`` every leaf goes through K2 (``kops.fused_select``)."""
-    if use_kernels:
+                 coord_chunk: int = 0, use_kernels: bool = False,
+                 fused: "bool | str" = True) -> Tensor:
+    """Extraction plan + coordinate phase on one leaf.
+
+    * ``use_kernels`` and ``fused`` (True or ``"force"``): one K2 launch
+      (``kops.fused_select``), with no (θ, numel) intermediate.  The JAX
+      package's measured crossover table (``repro.kernels.dispatch``) is
+      not ported: it was read from CPU interpret-mode timings, so every
+      leaf takes the kernel.
+    * ``use_kernels`` without ``fused``, or a ``coord_chunk``: the
+      two-step substrate on the (n, numel) fp32 view — the two
+      contractions as plain matrix products (full fp32 on the card:
+      ``torch.backends.cuda.matmul.allow_tf32`` is off by default), then
+      the coordinate phase, K3 (``kops.coord_select``) under
+      ``use_kernels``.  With ``coord_chunk`` the columns go in
+      slices of that width (the last one shorter), one K3 launch each;
+      columns are independent, so the slices give what JAX's zero-padded
+      ``lax.map`` gives.
+    * otherwise the contractions as tensordots over the leaf.
+    """
+    if use_kernels and fused:
         x = _leaf2d(leaf).float().contiguous()
         out = kops.fused_select(x, w_ext.float().contiguous(),
                                 w_agr.float().contiguous(), beta)
+        return out.reshape(leaf.shape[1:]).to(leaf.dtype)
+    if use_kernels or coord_chunk:
+        x = _leaf2d(leaf).float()
+        we, wa = w_ext.float(), w_agr.float()
+
+        def phase(xc: Tensor) -> Tensor:              # (n, c) -> (c,)
+            g_ext = torch.matmul(we, xc)
+            g_agr = torch.matmul(wa, xc)
+            if use_kernels:
+                return kops.coord_select(g_ext, g_agr, beta)
+            return G.bulyan_coordinate_phase(g_ext, g_agr, beta)
+
+        numel = x.shape[1]
+        if coord_chunk and numel > coord_chunk:
+            out = torch.cat([phase(x[:, c0:c0 + coord_chunk])
+                             for c0 in range(0, numel, coord_chunk)])
+        else:
+            out = phase(x)
         return out.reshape(leaf.shape[1:]).to(leaf.dtype)
     x = leaf.float()
     g_ext = torch.tensordot(w_ext, x, dims=([1], [0]))
@@ -250,11 +295,12 @@ class Aggregator:
     def plan(self, stats: AggStats) -> AggPlan:
         raise NotImplementedError
 
-    def apply(self, plan: AggPlan, grads: Tree, *,
-              use_kernels: bool = False) -> Tree:
+    def apply(self, plan: AggPlan, grads: Tree, *, coord_chunk: int = 0,
+              use_kernels: bool = False, fused: "bool | str" = True) -> Tree:
         """Plan application, shared across rules, dispatched on plan.kind.
         A wire container is decoded first: the apply mixes values across
-        workers, so it runs on the decoded fp32 rows."""
+        workers, so it runs on the decoded fp32 rows.  ``coord_chunk`` and
+        ``fused`` pick a bulyan plan's substrate (:func:`_bulyan_leaf`)."""
         enc = _as_encoded(grads)
         if enc is not None:
             from repro_torch.comm import codecs as CC
@@ -266,14 +312,23 @@ class Aggregator:
                             grads)
         if plan.kind == "bulyan":
             return tree_map(lambda x: _bulyan_leaf(
-                plan.w_ext, plan.w_agr, plan.beta, x,
-                use_kernels=use_kernels), grads)
+                plan.w_ext, plan.w_agr, plan.beta, x, coord_chunk=coord_chunk,
+                use_kernels=use_kernels, fused=fused), grads)
         if plan.kind == "coordinate":
             return tree_map(lambda x: self._coordinate_leaf(plan, x), grads)
         raise ValueError(f"unknown plan kind {plan.kind!r}")
 
     def _coordinate_leaf(self, plan: AggPlan, leaf: Tensor) -> Tensor:
         raise NotImplementedError
+
+    def __call__(self, grads: Tree, f: int, *, dists: Optional[Tensor] = None,
+                 coord_chunk: int = 0, use_kernels: bool = False) -> Tree:
+        """stats -> validate -> plan -> apply in one call."""
+        stats = compute_stats(grads, f, needs_dists=self.needs_dists,
+                              use_kernels=use_kernels, dists=dists)
+        self.validate(stats.n, stats.f)
+        return self.apply(self.plan(stats), grads, coord_chunk=coord_chunk,
+                          use_kernels=use_kernels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,6 +338,8 @@ class AggregatorBackend:
     gar: str
     f: int
     use_kernels: bool = True
+    coord_chunk: int = 0
+    fused: "bool | str" = True
     needs_dists: bool = False          # force stats for distance-free rules
 
     @classmethod
@@ -311,7 +368,9 @@ class AggregatorBackend:
 
     def apply(self, plan: AggPlan, grads: Tree) -> Tree:
         return self.aggregator.apply(plan, grads,
-                                     use_kernels=self.use_kernels)
+                                     coord_chunk=self.coord_chunk,
+                                     use_kernels=self.use_kernels,
+                                     fused=self.fused)
 
 
 REGISTRY: Dict[str, Aggregator] = {}
@@ -461,18 +520,168 @@ class MultiBulyan(_BulyanFamily):
 # high-level entry points
 # ==========================================================================
 def aggregate_tree(grads: Tree, f: int, name: str = "multi_bulyan", *,
-                   use_kernels: bool = False,
+                   coord_chunk: int = 0, use_kernels: bool = False,
+                   fused: "bool | str" = True,
                    dists: Optional[Tensor] = None) -> Tree:
     """Aggregate a stacked gradient tree with the named registered rule."""
     agg = get_aggregator(name)
     stats = compute_stats(grads, f, needs_dists=agg.needs_dists,
                           use_kernels=use_kernels, dists=dists)
     agg.validate(stats.n, stats.f)
-    return agg.apply(agg.plan(stats), grads, use_kernels=use_kernels)
+    return agg.apply(agg.plan(stats), grads, coord_chunk=coord_chunk,
+                     use_kernels=use_kernels, fused=fused)
 
 
 def aggregate_matrix(Gm: Tensor, f: int, name: str = "multi_bulyan", *,
-                     use_kernels: bool = False,
+                     coord_chunk: int = 0, use_kernels: bool = False,
+                     fused: "bool | str" = True,
                      dists: Optional[Tensor] = None) -> Tensor:
     """(n, d) stack -> (d,) aggregate: the single-leaf special case."""
-    return aggregate_tree(Gm, f, name, use_kernels=use_kernels, dists=dists)
+    return aggregate_tree(Gm, f, name, coord_chunk=coord_chunk,
+                          use_kernels=use_kernels, fused=fused, dists=dists)
+
+
+# ==========================================================================
+# pre-aggregation transforms
+# ==========================================================================
+class Transform:
+    """A composable stage rewriting the stacked gradients before the GAR.
+
+    ``stateful`` transforms carry a per-worker state tree across steps
+    (see :func:`init_transform_states`); ``needs_dists`` ones receive an
+    :class:`AggStats` with the distance matrix of the *current* stack.
+    Signature: ``(grads, stats=None, state=None, seed=None) -> (grads,
+    state)``; ``seed`` is the counterpart of the JAX package's ``key``.
+    """
+
+    name: str = ""
+    stateful: bool = False
+    needs_dists: bool = False
+
+    def init(self, grads: Tree) -> Tree:
+        raise NotImplementedError(f"{self.name} is stateless")
+
+    def __call__(self, grads: Tree, *, stats: Optional[AggStats] = None,
+                 state: Optional[Tree] = None,
+                 seed: Optional[int] = None) -> Tuple[Tree, Tree]:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipByNorm(Transform):
+    """Per-worker l2 clipping: ||g_i|| <= max_norm.
+
+    A cheap prefilter against magnitude attacks — the GAR still provides
+    the directional guarantee.
+    """
+
+    max_norm: float = 1.0
+    name: str = "clip"
+
+    def __call__(self, grads, *, stats=None, state=None, seed=None):
+        norms = torch.sqrt(torch.clamp(tree_sq_norms(grads), min=1e-30))
+        scale = torch.clamp(self.max_norm / norms, max=1.0)          # (n,)
+
+        def clip_leaf(x):
+            s = scale.reshape((-1,) + (1,) * (x.ndim - 1))
+            return (x.float() * s).to(x.dtype)
+
+        return tree_map(clip_leaf, grads), state
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerMomentum(Transform):
+    """Resilient averaging of momentums (Farhadkhani et al. 2022).
+
+    Each worker's gradient is replaced by its exponential momentum
+    m_i <- β·m_i + g_i before aggregation.  The new state is a fresh
+    tensor (the old one is left as it was); for fp32 gradients the
+    returned stack *is* the new state, so a caller must not write into it
+    in place (the trainer only reads it).
+    """
+
+    beta: float = 0.9
+    name: str = "worker_momentum"
+    stateful: bool = True
+
+    def init(self, grads: Tree) -> Tree:
+        return tree_map(lambda x: torch.zeros(
+            tuple(x.shape), dtype=torch.float32, device=x.device), grads)
+
+    def __call__(self, grads, *, stats=None, state=None, seed=None):
+        if state is None:
+            raise ValueError("worker_momentum needs a state tree; "
+                             "seed it with init_transform_states()")
+        # beta * m rounded, then + g rounded: the reference's two operations
+        new = tree_map(lambda m, g: (m * self.beta).add_(g.float()),
+                       state, grads)
+        out = tree_map(lambda m, g: m.to(g.dtype), new, grads)
+        return out, new
+
+
+@dataclasses.dataclass(frozen=True)
+class NearestNeighborMix(Transform):
+    """Replace g_i by the mean of its k nearest neighbours (self included).
+
+    The (n, n) mixing matrix depends only on the distances: each row's
+    distances are ranked by a stable argsort, NaN last, as ``jnp.argsort``
+    ranks them (a row forged at 1e30 has NaN distances to its kind and inf
+    to the rest, so its neighbours are the first rows at inf).
+    """
+
+    k: int = 3
+    name: str = "nn_mix"
+    needs_dists: bool = True
+
+    def __call__(self, grads, *, stats=None, state=None, seed=None):
+        if stats is None or stats.dists is None:
+            raise ValueError("nn_mix needs AggStats with the distance matrix")
+        k = min(self.k, stats.n)
+        order = torch.argsort(stats.dists, dim=1, stable=True)
+        ranks = torch.argsort(order, dim=1, stable=True)
+        W = (ranks < k).float() / float(k)                   # (n, n)
+        return tree_map(lambda x: _mix_leaf(W, x), grads), state
+
+
+def _mix_leaf(W: Tensor, leaf: Tensor) -> Tensor:
+    x = leaf.float()
+    return torch.tensordot(W.to(x.device), x, dims=([1], [0])).to(leaf.dtype)
+
+
+TRANSFORMS: Dict[str, Callable[..., Transform]] = {
+    "clip": ClipByNorm,
+    "worker_momentum": WorkerMomentum,
+    "nn_mix": NearestNeighborMix,
+}
+
+
+def init_transform_states(transforms: Sequence[Transform],
+                          grads_like: Tree) -> Tuple[Tree, ...]:
+    """Initial state tuple (one entry per transform; None when stateless).
+    ``grads_like`` only lends its leaves' shapes and devices."""
+    return tuple(t.init(grads_like) if t.stateful else None
+                 for t in transforms)
+
+
+def apply_transforms(grads: Tree, transforms: Sequence[Transform],
+                     states: Optional[Sequence[Tree]] = None, *,
+                     seed: Optional[int] = None, use_kernels: bool = False
+                     ) -> Tuple[Tree, Tuple[Tree, ...]]:
+    """Run the transform pipeline; returns (grads, new_states).  Transform
+    i draws from ``fold_seed(seed, i)``; a ``needs_dists`` one gets the
+    distances of the stack it sees (K1 per leaf under ``use_kernels``)."""
+    if not transforms:
+        return grads, ()
+    if states is None:
+        states = (None,) * len(transforms)
+    new_states = []
+    f0 = 0  # transforms are rule-agnostic; stats carry distances only
+    for i, (t, st) in enumerate(zip(transforms, states)):
+        stats = None
+        if t.needs_dists:
+            stats = compute_stats(grads, f0, needs_dists=True,
+                                  use_kernels=use_kernels)
+        s = ATK.fold_seed(seed, i) if seed is not None else None
+        grads, st = t(grads, stats=stats, state=st, seed=s)
+        new_states.append(st)
+    return grads, tuple(new_states)

@@ -17,14 +17,17 @@
 //     broadcasts (one shared load per four multiply-adds);
 //   * the theta extracted and theta aggregated values stay in registers
 //     (TMAX = 8, 16 or 32 unrolled slots, guarded by the runtime theta);
-//     the median and the beta-selection are rank counts over them, so no
-//     (theta, d) intermediate is ever written to device memory;
+//     the median and the beta-selection are rank counts over them
+//     (select_tile.cuh, shared with K3), so no (theta, d) intermediate is
+//     ever written to device memory;
 //   * products and sums are rounded one operation at a time (__fmul_rn,
 //     __fadd_rn: no fused multiply-add), in row order, so the plain PyTorch
 //     version in kernels/ref.py reproduces the output bit for bit;
 //   * 64-bit offsets: an embedding leaf stack holds > 2^31 values.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "select_tile.cuh"
 
 namespace {
 
@@ -85,39 +88,7 @@ fused_select_kernel(const float* __restrict__ x, const float* __restrict__ w_ext
       }
     }
 
-    // theta-median: sorted[r] is the value of stable rank r
-    const int h = theta / 2;
-    float lo = 0.0f, hi = 0.0f;
-#pragma unroll
-    for (int t = 0; t < TMAX; ++t) {
-      if (t < theta) {
-        int r = 0;
-#pragma unroll
-        for (int k = 0; k < TMAX; ++k) {
-          if (k < theta) r += (ext[k] < ext[t]) || (k < t && ext[k] == ext[t]);
-        }
-        if (r == h) hi = ext[t];
-        if (r == h - 1) lo = ext[t];
-      }
-    }
-    const float med = (theta & 1) ? hi : __fmul_rn(0.5f, __fadd_rn(lo, hi));
-
-    // beta nearest to med by rank counting, ties to the lower index
-#pragma unroll
-    for (int t = 0; t < TMAX; ++t) ext[t] = fabsf(__fsub_rn(agr[t], med));
-    float s = 0.0f;
-#pragma unroll
-    for (int t = 0; t < TMAX; ++t) {
-      if (t < theta) {
-        int r = 0;
-#pragma unroll
-        for (int k = 0; k < TMAX; ++k) {
-          if (k < theta) r += (ext[k] < ext[t]) || (k < t && ext[k] == ext[t]);
-        }
-        if (r < beta) s = __fadd_rn(s, agr[t]);
-      }
-    }
-    out[j] = __fdiv_rn(s, (float)beta);
+    out[j] = select_tile::select_coordinate<TMAX>(ext, agr, theta, beta);
   }
 }
 

@@ -13,23 +13,27 @@ One train step:
    (``repro_torch.comm``), :func:`inject_wire` forges the first ``f``
    workers' messages (a wire attack), and the container is decoded into
    the gradient stack;
-4. stats → plan → apply (``core.api.AggregatorBackend``): under
+4. the pre-aggregation ``transforms`` (``core.api.apply_transforms``),
+   whose state rides in ``TrainerState.tstates``; a ``needs_dists`` one
+   takes its distances by K1 under ``rcfg.use_kernels``;
+5. stats → plan → apply (``core.api.AggregatorBackend``): under
    ``rcfg.use_kernels`` the statistics take one K1 launch per leaf, or
-   under a codec one K5 launch per int8 / bf16 wire leaf (straight off
-   the payloads), and a bulyan apply one K2 launch per leaf on the
-   decoded stack;
-5. one optimizer update from the aggregated gradient.
+   under a codec with no transform one K5 launch per int8 / bf16 wire
+   leaf (straight off the payloads), and a bulyan apply one K2 launch per
+   leaf on the (decoded, transformed) stack — or, with ``coord_chunk``,
+   the two-step substrate, one K3 launch per column slice;
+6. one optimizer update from the aggregated gradient.
 
 The step has signature ``(params, state, batch, seed) -> (params, state,
-metrics)``; ``state`` is a :class:`TrainerState` (``opt``, and ``cres``,
-the error-feedback residual, under an ``ef=1`` codec).  The mesh,
-hierarchical, observability and transform options of the JAX trainer, and
-its adaptive attacks, are not ported yet.
+metrics)``; ``state`` is a :class:`TrainerState` (``opt``; ``tstates``,
+one entry per transform; ``cres``, the error-feedback residual, under an
+``ef=1`` codec).  The mesh, hierarchical and observability options of the
+JAX trainer, and its adaptive attacks, are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -64,6 +68,9 @@ def split_workers(batch: Dict[str, Tensor], n_workers: int
 #: the seed stream of the codec's randomness, as the JAX trainer's
 #: ``fold_in(key, 2**31 - 2)``; attack leaf i draws from stream i
 ENCODE_STREAM = 2 ** 31 - 2
+#: the seed stream of the transforms, as the JAX trainer's
+#: ``fold_in(key, 2**31 - 1)``
+TRANSFORM_STREAM = 2 ** 31 - 1
 
 
 def inject_byzantine(grads: Tree, f: int, attack, seed: int = 0) -> Tree:
@@ -113,10 +120,11 @@ def inject_wire(enc: CM.EncodedGrads, f: int, attack, seed: int = 0
 @dataclasses.dataclass(frozen=True)
 class TrainerState:
     """The trainer-state container, accessed by field name: ``opt`` (the
-    optimizer's :class:`OptState`) and ``cres`` (the error-feedback
-    compression residual, a tree of fp32 ``(n, ...)`` leaves, ``None``
-    unless the codec has ``ef=1``).  The other slots of the JAX container
-    wait for their subsystems."""
+    optimizer's :class:`OptState`), ``tstates`` (one state per transform,
+    ``None`` for a stateless one; ``()`` when no transform is stateful)
+    and ``cres`` (the error-feedback compression residual, a tree of fp32
+    ``(n, ...)`` leaves, ``None`` unless the codec has ``ef=1``).  The
+    other slots of the JAX container wait for their subsystems."""
 
     opt: OptState
     tstates: tuple = ()
@@ -129,19 +137,27 @@ def _resolve_codec(codec) -> Optional[CM.Codec]:
     return CM.get_codec(codec) if isinstance(codec, str) else codec
 
 
-def init_train_state(opt: Optimizer, params: Tree, *, n_workers: int = 0,
-                     codec=None) -> TrainerState:
-    """Initial :class:`TrainerState`; an error-feedback codec (``ef=1``)
-    fills ``cres`` with zeros shaped like the ``n_workers`` stack."""
+def init_train_state(opt: Optimizer, params: Tree,
+                     transforms: Sequence[api.Transform] = (), *,
+                     n_workers: int = 0, codec=None) -> TrainerState:
+    """Initial :class:`TrainerState`: stateful transforms (worker
+    momentum) fill ``tstates``, and an error-feedback codec (``ef=1``)
+    ``cres``, with zeros shaped like the ``n_workers`` stack."""
     codec_obj = _resolve_codec(codec)
-    cres = None
-    if codec_obj is not None and codec_obj.stateful:
-        if n_workers <= 0:
-            raise ValueError("error-feedback codecs need n_workers > 0")
-        # expand: the stacked shapes as views, nothing allocated
-        cres = codec_obj.init_residual(tree_map(
-            lambda p: p.expand((n_workers,) + tuple(p.shape)), params))
-    return TrainerState(opt=opt.init(params), cres=cres)
+    stateful = any(t.stateful for t in transforms)
+    ef = codec_obj is not None and codec_obj.stateful
+    if not stateful and not ef:
+        return TrainerState(opt=opt.init(params))
+    if n_workers <= 0:
+        raise ValueError("stateful transforms / error-feedback codecs "
+                         "need n_workers > 0")
+    # expand: the stacked shapes as views, nothing allocated
+    stacked = tree_map(
+        lambda p: p.expand((n_workers,) + tuple(p.shape)), params)
+    tstates = api.init_transform_states(transforms, stacked) \
+        if stateful else ()
+    cres = codec_obj.init_residual(stacked) if ef else None
+    return TrainerState(opt=opt.init(params), tstates=tstates, cres=cres)
 
 
 # ------------------------------------------------------------------ trainer
@@ -185,7 +201,9 @@ def per_worker_grads(params: Tree, cfg: ArchConfig,
 def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     lr_fn, *, window: int = 0, chunk_q: int = 1024,
                     attack: str = "none", attack_f: Optional[int] = None,
-                    codec=None, telemetry: bool = False):
+                    transforms: Sequence[api.Transform] = (),
+                    codec=None, coord_chunk: int = 0,
+                    telemetry: bool = False):
     """Build the stacked-trainer step.
 
     ``attack`` is a spec string (``core.attacks.get_attack``, or a wire
@@ -199,11 +217,20 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     decoded into the gradient stack.  An ``ef=1`` codec threads its
     residual through ``state.cres`` (:func:`init_train_state`).
 
+    ``transforms`` (``core.api`` pre-aggregation stages) rewrite the
+    (decoded) stack before the rule, drawing from the seed stream
+    ``TRANSFORM_STREAM``; stateful ones thread their state through
+    ``state.tstates`` (seed it with :func:`init_train_state`).  After a
+    transform the statistics run on the rewritten stack, not on the wire
+    container.  ``coord_chunk`` puts a bulyan apply on the two-step
+    substrate in column slices of that width (``core.api._bulyan_leaf``).
+
     With ``telemetry`` the metrics gain a ``"telemetry"`` dict of plan
     diagnostics (``selection``, ``byz_mass``, score fields) plus
     ``honest_dev`` and, under a codec, ``wire_bytes_per_worker``.
     """
     rcfg.validate()
+    transforms = tuple(transforms)
     f_eff = rcfg.f if attack_f is None else attack_f
     if not 0 <= f_eff <= rcfg.f:
         raise ValueError(
@@ -217,7 +244,8 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     attack_fn = ATK.get_wire_attack(attack) if wire else \
         ATK.get_attack(attack)
     # telemetry wants the score spectrum even for distance-free rules
-    backend = api.AggregatorBackend.for_config(rcfg, needs_dists=telemetry)
+    backend = api.AggregatorBackend.for_config(
+        rcfg, coord_chunk=coord_chunk, needs_dists=telemetry)
 
     def step(params, state: TrainerState, batch, seed: int = 0):
         losses, grads = per_worker_grads(params, cfg, batch, window=window,
@@ -236,7 +264,17 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                 # residual is already formed); statistics come straight
                 # off the container
                 grads = codec_obj.decode(enc, out=grads)
-            stats = backend.stats(grads if enc is None else enc)
+            # a stateful transform's new state may share storage with the
+            # stack it returns: nothing below writes into ``grads``
+            grads, tstates = api.apply_transforms(
+                grads, transforms, state.tstates or None,
+                seed=ATK.fold_seed(seed, TRANSFORM_STREAM),
+                use_kernels=rcfg.use_kernels)
+            # statistics straight off the wire container unless a
+            # transform rewrote the decoded stack
+            stats_src = enc if (enc is not None and not transforms) \
+                else grads
+            stats = backend.stats(stats_src)
             plan = backend.plan(stats)
             agg = backend.apply(plan, grads)
             lr = lr_fn(state.opt.step)
@@ -255,7 +293,8 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                 if enc is not None:
                     diag["wire_bytes_per_worker"] = enc.bytes_per_worker
                 metrics["telemetry"] = diag
-        new_state = dataclasses.replace(state, opt=new_opt, cres=cres)
+        new_state = dataclasses.replace(state, opt=new_opt, tstates=tstates,
+                                        cres=cres)
         return tree_map(lambda p: p.detach(), new_params), new_state, metrics
 
     return step

@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.coord_select import check_coord_args, coord_select_cuda
 from repro_torch.kernels.dequant_stats import (check_dequant_args,
                                                dequant_stats_cuda)
 from repro_torch.kernels.fused_select import check_select_args, fused_select_cuda
@@ -19,7 +20,8 @@ from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
 
 _WRAPPERS = {"pairwise_stats": pairwise_stats_cuda,
              "fused_select": fused_select_cuda,
-             "dequant_stats": dequant_stats_cuda}
+             "dequant_stats": dequant_stats_cuda,
+             "coord_select": coord_select_cuda}
 
 
 def pairwise_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,6 +53,16 @@ def fused_select(x: torch.Tensor, w_ext: torch.Tensor, w_agr: torch.Tensor,
     if x.device.type == "cpu":
         return ref.fused_select_ref(x, w_ext, w_agr, beta)
     return fused_select_cuda(x, w_ext, w_agr, beta)
+
+
+def coord_select(g_ext: torch.Tensor, g_agr: torch.Tensor,
+                 beta: int) -> torch.Tensor:
+    """Bulyan coordinate phase on materialised (θ, d) ``g_ext``/``g_agr``
+    -> (d,) fp32 (the second step of the two-step apply)."""
+    check_coord_args(g_ext, g_agr, beta)
+    if g_ext.device.type == "cpu":
+        return ref.coord_select_ref(g_ext, g_agr, beta)
+    return coord_select_cuda(g_ext, g_agr, beta)
 
 
 def launch_counts() -> Dict[str, int]:

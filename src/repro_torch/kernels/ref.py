@@ -62,21 +62,18 @@ def fused_select_ref(x: Tensor, w_ext: Tensor, w_agr: Tensor, beta: int, *,
                      chunk: int = 1 << 20) -> Tensor:
     """(n, d) stack + (θ, n) plan weights -> (d,) multi-Bulyan aggregate.
 
-    Per coordinate: the two contractions over the worker axis, the θ-median
-    of the extracted values (midpoint of the middle pair for even θ), the
-    β aggregated values nearest it by rank counting (ties to the lower
-    index), their mean.  The contractions and the final sum run row by
-    row, each product and sum rounded on its own — the CUDA kernel's order,
-    so the two agree bit for bit.  Columns are independent, so the work is
-    cut into ``chunk``-column pieces to bound the (θ, θ, chunk) rank count.
+    Per coordinate: the two contractions over the worker axis, then the
+    coordinate phase of :func:`coord_select_ref`.  The contractions run row
+    by row, each product and sum rounded on its own — the CUDA kernel's
+    order, so the two agree bit for bit.  Columns are independent, so the
+    work is cut into ``chunk``-column pieces to bound the (θ, θ, chunk)
+    rank count.
     """
     theta, n = w_ext.shape
     d = x.shape[1]
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
     we = w_ext.float()
     wa = w_agr.float()
-    idx = torch.arange(theta, device=x.device)
-    lower = (idx[None, :] < idx[:, None])[:, :, None]          # k < t
     for c0 in range(0, d, chunk):
         xc = x[:, c0:c0 + chunk].float()
         ext = torch.zeros((theta, xc.shape[1]), dtype=torch.float32,
@@ -85,16 +82,47 @@ def fused_select_ref(x: Tensor, w_ext: Tensor, w_agr: Tensor, beta: int, *,
         for i in range(n):
             ext = ext + we[:, i:i + 1] * xc[i:i + 1]
             agr = agr + wa[:, i:i + 1] * xc[i:i + 1]
-        srt = torch.sort(ext, dim=0).values
-        h = theta // 2
-        med = srt[h] if theta % 2 else 0.5 * (srt[h - 1] + srt[h])
-        dist = torch.abs(agr - med[None, :])
-        # rank[t] = #{k: dist[k] < dist[t]} + #{k < t: dist[k] == dist[t]}
-        lt = dist[None, :, :] < dist[:, None, :]
-        eq = (dist[None, :, :] == dist[:, None, :]) & lower
-        sel = torch.sum(lt | eq, dim=1) < beta
-        s = torch.zeros_like(med)
-        for t in range(theta):
-            s = s + torch.where(sel[t], agr[t], torch.zeros_like(s))
-        out[c0:c0 + chunk] = s / float(beta)
+        out[c0:c0 + chunk] = _coordinate_phase(ext, agr, beta)
     return out
+
+
+def coord_select_ref(g_ext: Tensor, g_agr: Tensor, beta: int, *,
+                     chunk: int = 1 << 20) -> Tensor:
+    """(θ, d) extracted and aggregated values -> (d,) coordinate phase.
+
+    Per coordinate: the θ-median of ``g_ext`` (midpoint of the middle pair
+    for even θ), the β ``g_agr`` values nearest it by rank counting (ties
+    to the lower index), their sum in row order divided by β — the order
+    of ``csrc/select_tile.cuh``, which K2 and K3 share, so the two agree
+    with this bit for bit.  Cut into ``chunk``-column pieces as
+    :func:`fused_select_ref`.
+    """
+    d = g_ext.shape[1]
+    out = torch.empty((d,), dtype=torch.float32, device=g_ext.device)
+    for c0 in range(0, d, chunk):
+        out[c0:c0 + chunk] = _coordinate_phase(
+            g_ext[:, c0:c0 + chunk].float(), g_agr[:, c0:c0 + chunk].float(),
+            beta)
+    return out
+
+
+def _coordinate_phase(ext: Tensor, agr: Tensor, beta: int) -> Tensor:
+    """(θ, c) fp32 ext / agr -> (c,): ``select_tile.cuh`` in PyTorch."""
+    theta = ext.shape[0]
+    idx = torch.arange(theta, device=ext.device)
+    lower = (idx[None, :] < idx[:, None])[:, :, None]          # k < t
+    srt = torch.sort(ext, dim=0).values
+    h = theta // 2
+    med = srt[h] if theta % 2 else 0.5 * (srt[h - 1] + srt[h])
+    dist = torch.abs(agr - med[None, :])
+    # rank[t] = #{k: dist[k] < dist[t]} + #{k < t: dist[k] == dist[t]}
+    lt = dist[None, :, :] < dist[:, None, :]
+    eq = (dist[None, :, :] == dist[:, None, :]) & lower
+    sel = torch.sum(lt | eq, dim=1) < beta
+    s = torch.zeros_like(med)
+    for t in range(theta):
+        s = s + torch.where(sel[t], agr[t], torch.zeros_like(s))
+    # a tensor divisor: PyTorch divides a CUDA tensor by a Python scalar
+    # as a product with its reciprocal, an ulp off the kernel's division
+    # for a β that is not a power of two
+    return s / torch.full_like(s, float(beta))

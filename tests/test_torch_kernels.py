@@ -1,4 +1,5 @@
-"""K1 (pairwise_stats), K2 (fused_select) and K5 (dequant_stats) of the port.
+"""K1 (pairwise_stats), K2 (fused_select), K5 (dequant_stats) and K3
+(coord_select) of the port.
 
 On the CPU the plain PyTorch versions (``repro_torch.kernels.ref``) are
 held to the Pallas kernels run in interpret mode, over the edge grid of
@@ -7,7 +8,8 @@ even θ, β = θ, d = 1), and K2's plain version to the XLA ``_bulyan_leaf``
 of the JAX package.
 Tolerance: fp32 ``atol=1e-5·scale, rtol=1e-5``.  The tests marked
 ``cuda`` hold the CUDA kernels to their plain versions; they need a card
-and ``nvcc`` and skip elsewhere.  JAX is imported only by the tests that
+and ``nvcc`` and skip elsewhere.  K3's plain version is held to the
+Pallas kernel in ``tests/test_torch_substrates.py``.  JAX is imported only by the tests that
 use it, so on a GPU machine without JAX the card tests run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.core import gar as TG
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.coord_select import coord_select_cuda
 from repro_torch.kernels.dequant_stats import dequant_stats_cuda
 from repro_torch.kernels.fused_select import MAX_THETA, fused_select_cuda
 from repro_torch.kernels.pairwise_sqdist import (launch_config,
@@ -118,7 +121,7 @@ def test_ops_pairwise_stats_takes_plain_version_on_cpu():
     for a, b in zip(ops.pairwise_stats(x), ref.pairwise_stats_ref(x)):
         assert torch.equal(a, b)
     assert ops.launch_counts() == {"pairwise_stats": 0, "fused_select": 0,
-                                   "dequant_stats": 0}
+                                   "dequant_stats": 0, "coord_select": 0}
 
 
 @pytest.mark.parametrize("n,d,want", [
@@ -284,3 +287,31 @@ def test_k5_kernel_equals_k1_on_decoded_on_card(card, n, d, dtype):
     np.testing.assert_allclose(got_d.cpu().numpy(), want_d.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * scale)
     _close(got_s.cpu().numpy(), want_s.cpu().numpy())
+
+
+def _coord_inputs(theta, d, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    ge = rng.normal(size=(theta, d)).astype(np.float32)
+    ga = rng.normal(size=(theta, d)).astype(np.float32)
+    if ties:                      # every agr value 1 away from the median 0
+        ge[:] = 0.0
+        ga[:] = 1.0
+        ga[1::2] = -1.0
+    return _t(ge), _t(ga)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,beta", [(5, 1), (8, 2), (16, 4), (30, 10),
+                                        (7, 7), (32, 1)])
+@pytest.mark.parametrize("d", [1, 64, 1000, 2049, 100_003])
+@pytest.mark.parametrize("ties", [False, True])
+def test_k3_kernel_matches_plain_on_card(card, theta, beta, d, ties):
+    """K3 runs K2's coordinate phase (``csrc/select_tile.cuh``): bit for
+    bit its plain version, ties to the lower row, β = θ the mean."""
+    ge, ga = (t.to(card) for t in _coord_inputs(theta, d, theta * d, ties))
+    got = coord_select_cuda(ge, ga, beta)
+    want = ref.coord_select_ref(ge, ga, beta)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if beta == theta:
+        _close(got.cpu().numpy(), ga.mean(dim=0).cpu().numpy())
