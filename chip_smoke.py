@@ -72,8 +72,44 @@ Phases; any failure exits non-zero and no result line is printed:
 13. the ``kernels`` JSON line, then the last line:
    ``{"ok": true, "device": {...}}``.
 
+The mesh-native statistics (after phase 3, 10 and 11 in that order):
+
+* K6 ``pairwise_stats_rect``, K7 ``dequant_stats_rect`` and K4
+  ``pairwise_sqdist`` against the square kernels and their plain
+  versions: K6 on every row block of W in {1, 2, 4, 8} rank meshes for n
+  in {11, 12, 13, 23, 37} x d in CHECK_WIDTHS, on the ``inf``-attack
+  stack, and on the embedding leaf at rank 1 of 4; each block (a view of
+  the zero-padded stack) bit for bit K1's matching rows, NaN and inf in
+  place, and within K1's tolerance of its plain version.  K7 the same on
+  int8 and bf16 payloads (n in {11, 13, 37} x d in K5's widths, the
+  embedding leaf, QSGD and bf16 wires forged by ``scale_poison``) against
+  K5's rows; a mixed-type call must raise.  K4 on fp32 and bf16 stacks
+  bit for bit ``finalize_dists`` of K1 (on ``x.float()``), every finite
+  row's diagonal exactly 0;
+* the mesh statistics of one batch's real gradients (the training
+  configuration, ``inf`` attack) in a one-rank NCCL world
+  (``make_host_mesh()``, 1x1): ``compute_stats(row_block(...),
+  mesh_ctx=, use_kernels=True)`` on the tree, a QSGD int8 and a bf16
+  wire forged by ``scale_poison``, each bit for bit the replicated kernel
+  path with identical multi-Bulyan, multi-Krum and Krum plans and no
+  byzantine mass; launches exactly K6 (tree) or K7 (wires) once per leaf
+  and nothing else, each on the square kernel's symmetric grid, since a
+  one-rank block is the stack itself.  Then, in one process, the 4 row
+  blocks of a 4-rank mesh (3 of 12 rows) through K6 leaf by leaf, and
+  through K7 on the int8 wire, each launch on the rectangular grid,
+  assembled: bit for bit the replicated raw (n, n) and norms;
+* timing of K6 at 1x1 and on a 4-rank block, K7 (int8, bf16) the same,
+  and K4, at the main path's leaf shapes beside their plain versions,
+  library calls (``torch.mm``; none for K7) and bounds.  The ``kernels``
+  line has one entry for each grid of K6 and K7: ``pairwise_stats_rect``
+  and ``dequant_stats_rect`` (the symmetric grid, the NCCL world's
+  launches) and ``pairwise_stats_rect_block`` and
+  ``dequant_stats_rect_block`` (the rectangular grid, the 4 blocks'
+  launches).
+
 Launch counts are read per phase: every count is set to 0 just before a
-training phase or a substrate's apply and read just after it.
+training phase, a substrate's apply or a mesh statistics pass and read
+just after it.  K4 has no caller on any of those paths.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
@@ -102,6 +138,16 @@ FP32_FLOP_PER_S = 67e12               # H100 SXM data sheet, non-tensor fp32
 K5_NS = (1, 3, 11, 13, 37, 150)
 K5_WIDTHS = (1, 4095, 100_003)
 K3_GRID = ((5, 1), (8, 2), (16, 4), (30, 10), (7, 7), (32, 1))
+RECT_NS = (11, 12, 13, 23, 37)
+RECT_WS = (1, 2, 4, 8)
+K7_NS = (11, 13, 37)
+K4_NS = (3, 11, 17, 37)
+#: the mesh of the row blocks timed and assembled in one process
+MESH_W = 4
+#: the training paths launch none of the mesh statistics' kernels (K4 has
+#: no caller on any path: the statistics accumulate raw leaf sums)
+NO_MESH_KERNELS = {"pairwise_stats_rect": 0, "dequant_stats_rect": 0,
+                   "pairwise_sqdist": 0}
 COORD_CHUNK = 2 ** 24
 TIE_TOL = 1e-5
 TRANSFORM_STEPS = 3
@@ -160,15 +206,15 @@ def build_kernels():
     log(f"build: {len(logs)} kernel(s) compiled in {seconds:.1f}s")
 
 
-def rows_stack(torch, d, seed):
-    """(N, d) fp32 on the card: row i is N(0, s_i^2) noise with distinct
+def rows_stack(torch, d, seed, n=N):
+    """(n, d) fp32 on the card: row i is N(0, s_i^2) noise with distinct
     s_i, so pairwise distances (about d (s_i^2 + s_j^2)) are well apart
     and the plan cannot flip on an ulp."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    x = torch.empty((N, d), dtype=torch.float32, device="cuda")
+    x = torch.empty((n, d), dtype=torch.float32, device="cuda")
     x.normal_(generator=gen)
-    scale = 1.0 + 0.1 * torch.arange(N, dtype=torch.float32, device="cuda")
+    scale = 1.0 + 0.1 * torch.arange(n, dtype=torch.float32, device="cuda")
     return x.mul_(scale[:, None])
 
 
@@ -539,7 +585,7 @@ def two_step_substrate(torch):
         slices = sum(-(-m // chunk) if chunk and m > chunk else 1
                      for m in numels)
         want = {"pairwise_stats": 0, "fused_select": 0, "dequant_stats": 0,
-                "coord_select": slices}
+                "coord_select": slices, **NO_MESH_KERNELS}
         check(counts == want, f"{label}: launches {counts}, want {want}")
         n_diff = n_tie = 0
         for x, o2, of in zip(leaves, tree_leaves(out), out_f):
@@ -615,7 +661,7 @@ def transform_training(torch):
     counts = ops.launch_counts()
     want = {"pairwise_stats": 2 * leaves * TRANSFORM_STEPS,
             "fused_select": leaves * TRANSFORM_STEPS, "dequant_stats": 0,
-            "coord_select": 0}
+            "coord_select": 0, **NO_MESH_KERNELS}
     check(counts == want, f"transforms: launches {counts}, want {want}")
     check(state.tstates[1] is None, "transforms: nn_mix grew a state")
     log(f"transforms (worker_momentum 0.9, nn_mix 3; inf): losses "
@@ -626,6 +672,383 @@ def transform_training(torch):
     del params, state, m
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
+
+
+def same_bits(torch, a, b):
+    """Equal bit for bit, NaN in the same places."""
+    return tuple(a.shape) == tuple(b.shape) and \
+        torch.equal(torch.isnan(a), torch.isnan(b)) and \
+        torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def padded(torch, x, W):
+    """``x`` with zero rows appended to W ceil(n / W) rows (the worker
+    axis of a W-rank mesh), and n_loc = ceil(n / W)."""
+    n_loc = -(-x.shape[0] // W)
+    if n_loc * W == x.shape[0]:
+        return x, n_loc
+    full = x.new_zeros((n_loc * W,) + tuple(x.shape[1:]))
+    full[:x.shape[0]] = x
+    return full, n_loc
+
+
+def stats_err(torch, got_d, got_s, want_d, want_s):
+    """(max abs err, relative err) of raw distances and norms against a
+    plain version: non-finite entries at the same places (compare_k1),
+    distances against max(1, 2 max finite norm), norms against max(1,
+    max finite norm)."""
+    e_d, _ = compare_k1(torch, got_d, want_d)
+    e_s, _ = compare_k1(torch, got_s, want_s)
+    fin = torch.isfinite(want_s)
+    s_max = float(torch.max(want_s[fin])) if bool(fin.any()) else 0.0
+    return max(e_d, e_s), max(e_d / max(1.0, 2.0 * s_max),
+                              e_s / max(1.0, s_max))
+
+
+def k6_blocks(torch, label, x, Ws, worst, ranks=None):
+    """Every rank's (or ``ranks``') K6 block of the stack ``x`` on W-rank
+    meshes: the block a view of the zero-padded stack, K1's chunk count
+    for the true n (at W = 1 the whole stack, which K6 runs on K1's
+    symmetric grid, and also a copy of it, on the rectangular grid).  Each
+    block must be K1's matching rows bit for bit (NaN and inf in place)
+    and within K1_TOL of its plain version; the worst error is kept by the
+    grid that ran (``pairwise_stats_rect`` on the symmetric grid,
+    ``pairwise_stats_rect_block`` on the rectangular one).  Returns the
+    number of blocks checked."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_sqdist import (pairwise_stats_cuda,
+                                                     pairwise_stats_rect_cuda)
+    n = x.shape[0]
+    k1_d, k1_s = pairwise_stats_cuda(x)
+    count = 0
+    for W in Ws:
+        full, n_loc = padded(torch, x, W)
+        blocks = [(r, full[r * n_loc:(r + 1) * n_loc])
+                  for r in (range(W) if ranks is None else ranks)]
+        if W == 1:      # the whole stack as a copy: the rectangular grid
+            blocks.append((0, full.clone()))
+        for r, blk in blocks:
+            before = pairwise_stats_rect_cuda.square_launches
+            got_d, got_s = pairwise_stats_rect_cuda(blk, full, n=n)
+            grid = "" if pairwise_stats_rect_cuda.square_launches > before \
+                else "_block"
+            want_d, want_s = ref.pairwise_stats_rect_ref(blk, full)
+            torch.cuda.synchronize()
+            rows = max(0, min(n_loc, n - r * n_loc))
+            check(same_bits(torch, got_d[:rows, :n],
+                            k1_d[r * n_loc:r * n_loc + rows]) and
+                  same_bits(torch, got_s[:n], k1_s),
+                  f"K6 {label} W={W} rank {r}: differs from K1's rows")
+            err, rel = stats_err(torch, got_d[:rows, :n], got_s[:n],
+                                 want_d[:rows, :n], want_s[:n])
+            check(rel <= K1_TOL, f"K6 {label} W={W} rank {r}: relative "
+                  f"error {rel:.3e} > {K1_TOL} against its plain version")
+            key = "pairwise_stats_rect" + grid
+            worst[key] = max(worst[key], err)
+            count += 1
+            del got_d, got_s, want_d, want_s
+        del full
+    return count
+
+
+def k7_blocks(torch, label, p, mult, Ws, worst, ranks=None):
+    """K7 as :func:`k6_blocks`, on a payload and its multipliers (zero
+    payload and multiplier in the padding rows), against K5's rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_stats import (dequant_stats_cuda,
+                                                   dequant_stats_rect_cuda)
+    n = p.shape[0]
+    k5_d, k5_s = dequant_stats_cuda(p, mult)
+    count = 0
+    for W in Ws:
+        pf, n_loc = padded(torch, p, W)
+        mf, _ = padded(torch, mult, W)
+        blocks = [(r, pf[r * n_loc:(r + 1) * n_loc],
+                   mf[r * n_loc:(r + 1) * n_loc])
+                  for r in (range(W) if ranks is None else ranks)]
+        if W == 1:      # the whole payload as a copy: the rectangular grid
+            blocks.append((0, pf.clone(), mf.clone()))
+        for r, pb, mb in blocks:
+            before = dequant_stats_rect_cuda.square_launches
+            got_d, got_s = dequant_stats_rect_cuda(pb, mb, pf, mf, n=n)
+            grid = "" if dequant_stats_rect_cuda.square_launches > before \
+                else "_block"
+            want_d, want_s = ref.dequant_stats_rect_ref(pb, mb, pf, mf)
+            torch.cuda.synchronize()
+            rows = max(0, min(n_loc, n - r * n_loc))
+            check(same_bits(torch, got_d[:rows, :n],
+                            k5_d[r * n_loc:r * n_loc + rows]) and
+                  same_bits(torch, got_s[:n], k5_s),
+                  f"K7 {label} W={W} rank {r}: differs from K5's rows")
+            err, rel = stats_err(torch, got_d[:rows, :n], got_s[:n],
+                                 want_d[:rows, :n], want_s[:n])
+            check(rel <= K1_TOL, f"K7 {label} W={W} rank {r}: relative "
+                  f"error {rel:.3e} > {K1_TOL} against its plain version")
+            key = "dequant_stats_rect" + grid
+            worst[key] = max(worst[key], err)
+            count += 1
+            del got_d, got_s, want_d, want_s
+        del pf, mf
+    return count
+
+
+def rect_vs_square(torch):
+    """K6, K7 and K4 against the square kernels (bit for bit) and their
+    plain versions (within K1_TOL); returns the worst abs errors against
+    the plain versions."""
+    from repro_torch.comm import codecs as CC
+    from repro_torch.core import api
+    from repro_torch.dist import inject_wire
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dequant_stats import dequant_stats_rect_cuda
+    from repro_torch.kernels.pairwise_sqdist import (pairwise_sqdist_cuda,
+                                                     pairwise_stats_cuda)
+    worst = {"pairwise_stats_rect": 0.0, "pairwise_stats_rect_block": 0.0,
+             "dequant_stats_rect": 0.0, "dequant_stats_rect_block": 0.0,
+             "pairwise_sqdist": 0.0}
+    k6 = k7 = k4 = 0
+    for n in RECT_NS:
+        for d in CHECK_WIDTHS:
+            x = rows_stack(torch, d, seed=n * 31 + d, n=n)
+            k6 += k6_blocks(torch, f"n={n} d={d}", x, RECT_WS, worst)
+            del x
+    x = with_inf_attack(torch, rows_stack(torch, 1_000_000, seed=3))
+    k6 += k6_blocks(torch, "inf attack d=1000000", x, RECT_WS, worst)
+    del x
+    x = rows_stack(torch, EMBED_WIDTH, seed=EMBED_WIDTH)
+    k6 += k6_blocks(torch, f"embed d={EMBED_WIDTH}", x, (MESH_W,), worst,
+                    ranks=(1,))
+    del x
+    torch.cuda.empty_cache()
+    for dtype in (torch.int8, torch.bfloat16):
+        tag = "int8" if dtype == torch.int8 else "bf16"
+        for n in K7_NS:
+            for d in K5_WIDTHS:
+                p, mult = k5_payload(torch, n, d, dtype, seed=n * 13 + d)
+                k7 += k7_blocks(torch, f"{tag} n={n} d={d}", p, mult, RECT_WS,
+                                worst)
+        p, mult = k5_payload(torch, N, EMBED_WIDTH, dtype, seed=1)
+        k7 += k7_blocks(torch, f"{tag} embed d={EMBED_WIDTH}", p, mult,
+                        (MESH_W,), worst, ranks=(1,))
+        del p, mult
+        torch.cuda.empty_cache()
+    for spec in ("qsgd:bits=8", "bf16"):
+        x = rows_stack(torch, 1_000_000, seed=5)
+        enc, _ = CC.get_codec(spec).encode(x, seed=5)
+        enc = inject_wire(enc, F, "scale_poison", seed=5)
+        p, mult = CC.get_codec(spec).dequant_form(enc.payload, enc.sidecar)
+        k7 += k7_blocks(torch, f"{spec} scale_poison d=1000000",
+                        p.contiguous(), mult.float().contiguous(), RECT_WS,
+                        worst)
+        del x, enc, p, mult
+    p8 = torch.zeros((6, 64), dtype=torch.int8, device="cuda")
+    m6 = torch.ones(6, device="cuda")
+    try:
+        dequant_stats_rect_cuda(p8[:3], m6[:3], p8.to(torch.bfloat16), m6)
+        check(False, "K7 took an int8 block against a bf16 payload")
+    except ValueError as e:
+        check("payload dtypes differ" in str(e), f"K7 mixed types: {e}")
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(n, d, False) for n in K4_NS for d in CHECK_WIDTHS]
+        cases.append((N, 1_000_000, True))
+        for n, d, attacked in cases:
+            x = rows_stack(torch, d, seed=n * 17 + d, n=n)
+            if attacked:
+                x = with_inf_attack(torch, x)
+            x = x.to(dtype)
+            got = pairwise_sqdist_cuda(x)
+            raw, sq = pairwise_stats_cuda(x.float().contiguous())
+            plain = ref.pairwise_sqdist_ref(x)
+            torch.cuda.synchronize()
+            check(same_bits(torch, got, api.finalize_dists(raw)),
+                  f"K4 {dtype} n={n} d={d}: differs from finalize_dists(K1)")
+            diag = torch.diagonal(got)
+            fin = torch.isfinite(sq)
+            check(bool((diag[fin] == 0).all()),
+                  f"K4 {dtype} n={n} d={d}: a finite row's diagonal is not 0")
+            err, rel = stats_err(torch, got, sq, plain, sq)
+            check(rel <= K1_TOL, f"K4 {dtype} n={n} d={d}: relative error "
+                  f"{rel:.3e} > {K1_TOL} against its plain version")
+            worst["pairwise_sqdist"] = max(worst["pairwise_sqdist"], err)
+            k4 += 1
+            del x, got, raw, sq, plain
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    log(f"K6: {k6} row blocks (n in {list(RECT_NS)}, W in {list(RECT_WS)}, "
+        f"d in {list(CHECK_WIDTHS)}; inf attack; embedding rank 1 of "
+        f"{MESH_W}) equal K1's rows bit for bit; K7: {k7} row blocks (int8, "
+        f"bf16, qsgd and bf16 scale_poison wires) equal K5's rows bit for "
+        f"bit, a mixed-type call refused; K4: {k4} stacks (fp32, bf16) equal "
+        f"finalize_dists(K1) bit for bit; worst abs err against the plain "
+        f"versions {worst}")
+    return worst
+
+
+def mesh_statistics(torch):
+    """The mesh-native statistics of one batch's real gradients (the
+    training phase's configuration, ``inf`` attack) in a one-rank NCCL
+    world (``make_host_mesh()``, 1x1), through ``compute_stats(row_block,
+    mesh_ctx=, use_kernels=True)``: the tree, then QSGD int8 and bf16
+    wires forged by ``scale_poison``.  Every count is set to 0 just before
+    each and read just after: K6 (tree) or K7 (wires) once per leaf, no
+    other kernel, every launch on the square kernel's symmetric grid (the
+    one rank's block is the gathered stack itself, so K6 / K7 run K1's /
+    K5's grid from their own sources).  Dists and norms must equal the
+    replicated kernel path bit for bit, with the same multi-Bulyan, multi-Krum and Krum plans and
+    no plan mass on the forged rows.  The process group is destroyed
+    after.  Then, in this process, the row blocks of a MESH_W-rank mesh
+    (n_loc = 3 of n_pad = 12): K6 on each block leaf by leaf, as
+    ``sharded_raw_stats`` runs on each rank, assembled into the raw (n, n)
+    that must equal the replicated raw sum bit for bit; the same with K7
+    on the int8 wire; every launch there on the rectangular grid.  Returns
+    {"tree": counts, "wire": counts} of the NCCL world and {"tree_block":
+    n, "wire_block": n}, the rectangular-grid launches of the blocks."""
+    import torch.distributed as dist
+    from repro_torch.comm import codecs as CC
+    from repro_torch.core import api
+    from repro_torch.dist import inject_wire
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+    grads = real_gradients(torch)
+    leaves = len(tree_leaves(grads))
+    with torch.no_grad():
+        wires = {}
+        for spec in ("qsgd:bits=8", "bf16"):
+            enc, _ = CC.get_codec(spec).encode(grads, seed=11)
+            wires[spec] = inject_wire(enc, F, "scale_poison", seed=11)
+    cases = (("tree (inf)", grads, "pairwise_stats_rect"),
+             ("qsgd:bits=8 scale_poison", wires["qsgd:bits=8"],
+              "dequant_stats_rect"),
+             ("bf16 scale_poison", wires["bf16"], "dequant_stats_rect"))
+    counts = {}
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    try:
+        ctx = api.MeshContext.for_mesh(mesh)
+        check((ctx.worker_size, ctx.model_size) == (1, 1) and
+              dist.get_backend() == "nccl",
+              f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+              f"{dist.get_backend()}, want a 1x1 NCCL mesh")
+        for label, g, kernel in cases:
+            with torch.no_grad():
+                want = api.compute_stats(g, F, use_kernels=True)
+                block = api.row_block(g, ctx)
+                ops.reset_launch_counts()
+                got = api.compute_stats(block, F, use_kernels=True,
+                                        mesh_ctx=ctx)
+                torch.cuda.synchronize()
+                c = ops.launch_counts()
+                square = ops.square_launch_counts()[kernel]
+            want_c = {k: 0 for k in c}
+            want_c[kernel] = leaves
+            check(c == want_c, f"mesh {label}: launches {c}, want {want_c}")
+            check(square == leaves, f"mesh {label}: {square} of {leaves} "
+                  f"{kernel} launches on the symmetric grid, want all (the "
+                  f"block is the stack)")
+            check(same_bits(torch, got.dists, want.dists) and
+                  same_bits(torch, got.sq_norms, want.sq_norms),
+                  f"mesh {label}: statistics differ from the replicated "
+                  f"kernel path")
+            for rule in ("multi_bulyan", "multi_krum", "krum"):
+                agg = api.get_aggregator(rule)
+                pg, pw = agg.plan(got), agg.plan(want)
+                same = all(
+                    (a is None and b is None) or torch.equal(a, b)
+                    for a, b in ((pg.weights, pw.weights),
+                                 (pg.w_ext, pw.w_ext), (pg.w_agr, pw.w_agr)))
+                check(same and pg.beta == pw.beta,
+                      f"mesh {label}: {rule} plan differs")
+                byz = float(torch.sum(pg.selection_weights()[:F]))
+                check(byz == 0.0, f"mesh {label}: {rule} byzantine mass "
+                      f"{byz}")
+            counts[label] = c
+            log(f"mesh 1x1 NCCL {label}: launches {c}, all {kernel} on the "
+                f"symmetric grid; dists and norms "
+                f"equal the replicated kernel path bit for bit; multi_bulyan, "
+                f"multi_krum and krum plans identical, byzantine mass 0")
+            del want, got, block
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    assembled = [("K6 tree (inf)", grads, False),
+                 ("K7 qsgd:bits=8 scale_poison", wires["qsgd:bits=8"], True)]
+    with torch.no_grad():
+        blocks = [mesh_blocks(torch, label, g, wire)
+                  for label, g, wire in assembled]
+    del grads, wires
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    log(f"mesh statistics phase: {wall:.1f}s for the NCCL world's three "
+        f"passes (with the replicated passes they are held to)")
+    return {"tree": counts["tree (inf)"],
+            "wire": counts["qsgd:bits=8 scale_poison"],
+            "tree_block": blocks[0], "wire_block": blocks[1]}
+
+
+def mesh_blocks(torch, label, g, wire):
+    """The MESH_W row blocks of a tree or wire container, each block's
+    kernel leaf by leaf into its running (n_loc, n_pad) sum, assembled:
+    bit for bit the replicated raw statistics of the square kernel.  The
+    counts are set to 0 after the replicated pass: K6 (K7) must launch
+    once per block and leaf, each on the rectangular grid, nothing else.
+    Returns that launch count."""
+    from repro_torch.comm import codecs as CC
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_stats import dequant_stats_rect_cuda
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_rect_cuda
+    from repro_torch.tree import tree_leaves
+    raw_want, sq_want = api.raw_pairwise_stats(g, use_kernels=True)
+    ops.reset_launch_counts()
+    n_loc = -(-N // MESH_W)
+    tot_d = [torch.zeros((n_loc, n_loc * MESH_W), dtype=torch.float32,
+                         device="cuda") for _ in range(MESH_W)]
+    tot_s = [torch.zeros((n_loc * MESH_W,), dtype=torch.float32,
+                         device="cuda") for _ in range(MESH_W)]
+    if wire:
+        codec = CC.get_codec(g.spec)
+        items = [codec.dequant_form(p, s) for p, s in
+                 zip(tree_leaves(g.payload), CC.sidecar_leaves(g))]
+    else:
+        items = [(x.reshape(N, -1), None) for x in tree_leaves(g)]
+    for p, mult in items:
+        pf, _ = padded(torch, p.contiguous(), MESH_W)
+        mf = None if mult is None else \
+            padded(torch, mult.float().contiguous(), MESH_W)[0]
+        for r in range(MESH_W):
+            rows = slice(r * n_loc, (r + 1) * n_loc)
+            if wire:
+                dd, sq = dequant_stats_rect_cuda(pf[rows], mf[rows], pf, mf,
+                                                 n=N)
+            else:
+                dd, sq = pairwise_stats_rect_cuda(pf[rows], pf, n=N)
+            tot_d[r] = tot_d[r] + dd
+            tot_s[r] = tot_s[r] + sq
+        del pf, mf
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    kernel = "dequant_stats_rect" if wire else "pairwise_stats_rect"
+    want_c = {k: 0 for k in counts}
+    want_c[kernel] = MESH_W * len(items)
+    check(counts == want_c, f"{label}: launches {counts}, want {want_c}")
+    square = ops.square_launch_counts()[kernel]
+    check(square == 0, f"{label}: {square} launches on the symmetric grid, "
+          f"want none (a block of {n_loc} rows is not the stack)")
+    got = torch.cat(tot_d)[:N, :N]
+    check(same_bits(torch, got, raw_want) and
+          all(same_bits(torch, s[:N], sq_want) for s in tot_s),
+          f"{label}: {MESH_W} row blocks assembled differ from the "
+          f"replicated raw statistics")
+    plan_g, plan_w = plan_of(got), plan_of(raw_want)
+    check(torch.equal(plan_g.w_ext, plan_w.w_ext) and
+          torch.equal(plan_g.w_agr, plan_w.w_agr),
+          f"{label}: the assembled plan differs")
+    log(f"{label}: the {MESH_W} row blocks of {len(items)} leaves (n_loc "
+        f"{n_loc} of n_pad {n_loc * MESH_W}, {want_c[kernel]} launches of "
+        f"the rectangular grid) assembled equal the replicated raw (n, n) "
+        f"and every rank's norms bit for bit; plan identical")
+    return want_c[kernel]
 
 
 class Tee(io.TextIOBase):
@@ -690,7 +1113,7 @@ def training(torch):
     counts, shapes, history, _ = train_phase(
         torch, "training", TRAIN_ARGS,
         {"pairwise_stats": 1, "fused_select": 1, "dequant_stats": 0,
-         "coord_select": 0})
+         "coord_select": 0, **NO_MESH_KERNELS})
     return counts, shapes, [rec["seconds"] for rec in history]
 
 
@@ -699,7 +1122,7 @@ def wire_training(torch):
     counts, shapes, history, text = train_phase(
         torch, "wire A (qsgd:bits=8, scale_poison)", WIRE_A_ARGS,
         {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1,
-         "coord_select": 0})
+         "coord_select": 0, **NO_MESH_KERNELS})
     # qsgd:bits=8: one byte a coordinate plus one fp32 multiplier a leaf
     want = sum(math.prod(s[1:]) + 4 for s in shapes)
     line = next((ln for ln in text.splitlines()
@@ -712,7 +1135,7 @@ def wire_training(torch):
     _, _, history_b, _ = train_phase(
         torch, "wire B (signsgd:ef=1, payload_flip)", WIRE_B_ARGS,
         {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1,
-         "coord_select": 0}, zero_byz=False)
+         "coord_select": 0, **NO_MESH_KERNELS}, zero_byz=False)
     res = [rec["residual_max_abs"] for rec in history_b]
     check(all(math.isfinite(r) and r > 0.0 for r in res),
           f"wire B: error-feedback residual max |r| per step {res}")
@@ -844,6 +1267,105 @@ def timing(torch, shapes, worst_k5):
     return tot
 
 
+def mesh_timing(torch, shapes):
+    """Per-step sums over the main path's leaves of each mesh kernel's
+    median time, beside its plain version, its library call and its bound
+    from this run's shapes: K6 at 1x1 (the block is the stack: K1's
+    symmetric grid; and, logged, a copy of the stack as the block: the
+    rectangular grid at n_loc = n) and on the block of rank 1 of a
+    MESH_W-rank mesh (3 of 12 rows, a view of the zero-padded stack: the
+    rectangular grid), K7 the same on int8 and bf16 payloads, and K4."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_stats import dequant_stats_rect_cuda
+    from repro_torch.kernels.pairwise_sqdist import (pairwise_sqdist_cuda,
+                                                     pairwise_stats_rect_cuda)
+    numels = [math.prod(s[1:]) for s in shapes]
+    tot = collections.defaultdict(float)
+    bound = collections.defaultdict(lambda: {"bytes": 0.0, "operations": 0.0})
+
+    def add_bound(key, in_bytes, n_loc, n_full, m, decode=0):
+        # every input read once (a block that is a view of the stack is
+        # the stack's bytes), the (n_loc, n_full) block and (n_full,)
+        # norms written once; fp32 operations: the block's products and
+        # the stack's squares (2 a multiply-add; a block that is the whole
+        # stack needs only the gram's upper triangle, as K1's bound
+        # counts), and a decode multiply an element for a payload
+        products = n_full * (n_full + 1) if n_loc == n_full else \
+            2 * (n_loc * n_full + n_full)
+        b = bound[key]
+        b["bytes"] += (in_bytes + 4 * (n_loc * n_full + n_full)) \
+            / HBM_BYTES_PER_S
+        b["operations"] += (products + decode) * m / FP32_FLOP_PER_S
+
+    for i, m in enumerate(numels):
+        reps = 5 if m > 10_000_000 else 20
+        x = rows_stack(torch, m, seed=i)
+        full, n_loc = padded(torch, x, MESH_W)
+        blk = full[n_loc:2 * n_loc]
+        tot["k6_1x1"] += time_ms(
+            torch, lambda: pairwise_stats_rect_cuda(x, x, n=N), reps)
+        tot["k6_1x1_plain"] += time_ms(
+            torch, lambda: ref.pairwise_stats_rect_ref(x, x), min(reps, 3))
+        tot["k6_1x1_lib"] += time_ms(torch, lambda: torch.mm(x, x.t()), reps)
+        add_bound("k6_1x1", 4 * N * m, N, N, m)
+        copy = x.clone()
+        tot["k6_1x1_copy"] += time_ms(
+            torch, lambda: pairwise_stats_rect_cuda(copy, x, n=N), reps)
+        del copy
+        tot["k6_block"] += time_ms(
+            torch, lambda: pairwise_stats_rect_cuda(blk, full, n=N), reps)
+        tot["k6_block_plain"] += time_ms(
+            torch, lambda: ref.pairwise_stats_rect_ref(blk, full),
+            min(reps, 3))
+        tot["k6_block_lib"] += time_ms(
+            torch, lambda: torch.mm(blk, full.t()), reps)
+        add_bound("k6_block", 4 * full.shape[0] * m, n_loc, full.shape[0], m)
+        tot["k4"] += time_ms(torch, lambda: pairwise_sqdist_cuda(x), reps)
+        tot["k4_plain"] += time_ms(
+            torch, lambda: ref.pairwise_sqdist_ref(x), min(reps, 3))
+        tot["k4_lib"] += time_ms(torch, lambda: torch.mm(x, x.t()), reps)
+        # K4: the stack read once, the (n, n) written once; the gram's
+        # upper triangle, as K1's bound counts it
+        bound["k4"]["bytes"] += 4 * (N * m + N * N) / HBM_BYTES_PER_S
+        bound["k4"]["operations"] += N * (N + 1) * m / FP32_FLOP_PER_S
+        del x, full, blk
+        torch.cuda.empty_cache()
+    for dtype in (torch.int8, torch.bfloat16):
+        tag = "int8" if dtype == torch.int8 else "bf16"
+        for i, m in enumerate(numels):
+            reps = 5 if m > 10_000_000 else 20
+            p, mult = k5_payload(torch, N, m, dtype, seed=i)
+            pf, n_loc = padded(torch, p, MESH_W)
+            mf, _ = padded(torch, mult, MESH_W)
+            pb, mb = pf[n_loc:2 * n_loc], mf[n_loc:2 * n_loc]
+            tot[f"k7_1x1_{tag}"] += time_ms(
+                torch, lambda: dequant_stats_rect_cuda(p, mult, p, mult, n=N),
+                reps)
+            tot[f"k7_1x1_plain_{tag}"] += time_ms(
+                torch, lambda: ref.dequant_stats_rect_ref(p, mult, p, mult),
+                min(reps, 3))
+            add_bound(f"k7_1x1_{tag}", p.element_size() * N * m + 4 * N, N,
+                      N, m, decode=N)
+            tot[f"k7_block_{tag}"] += time_ms(
+                torch, lambda: dequant_stats_rect_cuda(pb, mb, pf, mf, n=N),
+                reps)
+            tot[f"k7_block_plain_{tag}"] += time_ms(
+                torch, lambda: ref.dequant_stats_rect_ref(pb, mb, pf, mf),
+                min(reps, 3))
+            add_bound(f"k7_block_{tag}", p.element_size() * pf.shape[0] * m
+                      + 4 * pf.shape[0], n_loc, pf.shape[0], m,
+                      decode=pf.shape[0])
+            del p, mult, pf, mf, pb, mb
+            torch.cuda.empty_cache()
+    out = dict(tot)
+    for k, b in bound.items():
+        out[f"{k}_bound_by"] = max(b, key=b.get)
+        out[f"{k}_bound"] = 1e3 * max(b.values())
+    log(f"mesh kernels over {len(shapes)} leaves, ms per step: " + ", ".join(
+        f"{k} {v}" for k, v in out.items()))
+    return out
+
+
 def profile_step(torch, label, attack, codec=None):
     """One steady-state step of the training phase's configuration (with
     ``attack`` and ``codec``), traced: device time summed over the kernels
@@ -942,6 +1464,7 @@ def main():
         t0 = time.perf_counter()
         worst = kernels_vs_plain(torch)
         worst_k5 = k5_vs_plain(torch)
+        worst_rect = rect_vs_square(torch)
         log(f"kernels vs plain versions: {time.perf_counter() - t0:.1f}s; "
             f"K5 worst relative error {worst_k5['max_rel']:.3e}")
         counts, shapes, step_s = training(torch)
@@ -950,7 +1473,9 @@ def main():
         worst_k3 = k3_vs_plain(torch)
         counts_k3, held, n_diff = two_step_substrate(torch)
         transform_training(torch)
+        counts_mesh = mesh_statistics(torch)
         tot = timing(torch, shapes, worst_k5)
+        tot_mesh = mesh_timing(torch, shapes)
         log(f"K5 worst relative error over every check: "
             f"{worst_k5['max_rel']:.3e}")
         for t in ("int8", "bf16"):
@@ -967,6 +1492,19 @@ def main():
             f"fusion win {tot['two_step'] / tot['k2']:.3f}x; {held} K3 "
             f"launches on the real stack held to the plain version; "
             f"coordinates at near-ties {n_diff}")
+        log(f"mesh kernels, ms per step: K6 1x1 {tot_mesh['k6_1x1']:.4f} "
+            f"(bound {tot_mesh['k6_1x1_bound']:.4f}, torch.mm "
+            f"{tot_mesh['k6_1x1_lib']:.4f}) and on a {MESH_W}-rank block "
+            f"{tot_mesh['k6_block']:.4f} (bound "
+            f"{tot_mesh['k6_block_bound']:.4f}) against K1 {tot['k1']:.4f}; "
+            f"K6 1x1 on a copy of the stack (rectangular grid) "
+            f"{tot_mesh['k6_1x1_copy']:.4f}; "
+            f"K7 int8 {tot_mesh['k7_1x1_int8']:.4f}, bf16 "
+            f"{tot_mesh['k7_1x1_bf16']:.4f} against K5 {tot['k5_int8']:.4f}, "
+            f"{tot['k5_bf16']:.4f}, on a block int8 "
+            f"{tot_mesh['k7_block_int8']:.4f}, bf16 "
+            f"{tot_mesh['k7_block_bf16']:.4f}; K4 {tot_mesh['k4']:.4f} (bound "
+            f"{tot_mesh['k4_bound']:.4f})")
         profile_step(torch, "uncompressed (inf)", "inf")
         profile_step(torch, "wire A (qsgd:bits=8, scale_poison)",
                      "scale_poison", "qsgd:bits=8")
@@ -1006,6 +1544,67 @@ def main():
          "ms": tot["k3"], "plain_ms": tot["k3_plain"],
          "bound_ms": tot["k3_bound"], "bound_by": tot["k3_bound_by"],
          "library_ms": None},
+        # K6 and K7 have two grids, one entry each: on the one-rank NCCL
+        # mesh the block is the stack, and they run the square kernel's
+        # symmetric grid (stats_tile.cuh) from their own sources; a block
+        # of a W-rank mesh runs the rectangular grid (stats_rect.cuh),
+        # here the MESH_W blocks of the mesh phase
+        {"name": "pairwise_stats_rect", "route": "cuda",
+         "source": "src/repro_torch/csrc/pairwise_stats_rect.cu",
+         "replaces": "src/repro/kernels/pairwise_sqdist.py:221",
+         "grid": "symmetric (stats_tile.cuh): 1x1 mesh, the block is the "
+                 "stack",
+         "launches": counts_mesh["tree"]["pairwise_stats_rect"],
+         "max_abs_err": worst_rect["pairwise_stats_rect"],
+         "ms": tot_mesh["k6_1x1"], "plain_ms": tot_mesh["k6_1x1_plain"],
+         "bound_ms": tot_mesh["k6_1x1_bound"],
+         "bound_by": tot_mesh["k6_1x1_bound_by"],
+         "library_ms": tot_mesh["k6_1x1_lib"]},
+        {"name": "pairwise_stats_rect_block", "route": "cuda",
+         "source": "src/repro_torch/csrc/pairwise_stats_rect.cu",
+         "replaces": "src/repro/kernels/pairwise_sqdist.py:221",
+         "grid": f"rectangular (stats_rect.cuh): {MESH_W}-rank mesh, "
+                 f"{-(-N // MESH_W)} of {-(-N // MESH_W) * MESH_W} rows",
+         "launches": counts_mesh["tree_block"],
+         "max_abs_err": worst_rect["pairwise_stats_rect_block"],
+         "ms": tot_mesh["k6_block"], "plain_ms": tot_mesh["k6_block_plain"],
+         "bound_ms": tot_mesh["k6_block_bound"],
+         "bound_by": tot_mesh["k6_block_bound_by"],
+         "library_ms": tot_mesh["k6_block_lib"]},
+        {"name": "dequant_stats_rect", "route": "cuda",
+         "source": "src/repro_torch/csrc/dequant_stats_rect.cu",
+         "replaces": "src/repro/kernels/dequant_stats.py:173",
+         "grid": "symmetric (stats_tile.cuh): 1x1 mesh, the block is the "
+                 "payload",
+         "launches": counts_mesh["wire"]["dequant_stats_rect"],
+         "max_abs_err": worst_rect["dequant_stats_rect"],
+         "ms": tot_mesh["k7_1x1_int8"],
+         "plain_ms": tot_mesh["k7_1x1_plain_int8"],
+         "bound_ms": tot_mesh["k7_1x1_int8_bound"],
+         "bound_by": tot_mesh["k7_1x1_int8_bound_by"], "library_ms": None},
+        {"name": "dequant_stats_rect_block", "route": "cuda",
+         "source": "src/repro_torch/csrc/dequant_stats_rect.cu",
+         "replaces": "src/repro/kernels/dequant_stats.py:173",
+         "grid": f"rectangular (stats_rect.cuh): {MESH_W}-rank mesh, "
+                 f"{-(-N // MESH_W)} of {-(-N // MESH_W) * MESH_W} rows",
+         "launches": counts_mesh["wire_block"],
+         "max_abs_err": worst_rect["dequant_stats_rect_block"],
+         "ms": tot_mesh["k7_block_int8"],
+         "plain_ms": tot_mesh["k7_block_plain_int8"],
+         "bound_ms": tot_mesh["k7_block_int8_bound"],
+         "bound_by": tot_mesh["k7_block_int8_bound_by"],
+         "library_ms": None},
+        # K4 has no caller on the training or mesh paths (they accumulate
+        # raw per-leaf statistics and finalise once), so 0 launches there
+        {"name": "pairwise_sqdist", "route": "cuda",
+         "source": "src/repro_torch/csrc/pairwise_sqdist.cu",
+         "replaces": "src/repro/kernels/pairwise_sqdist.py:67",
+         "launches": counts["pairwise_sqdist"],
+         "max_abs_err": worst_rect["pairwise_sqdist"],
+         "ms": tot_mesh["k4"], "plain_ms": tot_mesh["k4_plain"],
+         "bound_ms": tot_mesh["k4_bound"],
+         "bound_by": tot_mesh["k4_bound_by"],
+         "library_ms": tot_mesh["k4_lib"]},
     ]
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
         f"{wire_s}")

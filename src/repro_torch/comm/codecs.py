@@ -479,6 +479,32 @@ def encoded_leaf_contrib(codec: Codec, payload: Tensor,
     return api._leaf_stats_contrib(g)
 
 
+def encoded_leaf_block_contrib(codec: Codec, p_full: Tensor,
+                               s_full: Optional[Tensor], shape: Shape, *,
+                               row_start: int, n_loc: int,
+                               n: Optional[int] = None
+                               ) -> Tuple[Tensor, Tensor]:
+    """Row-block partial of :func:`encoded_leaf_contrib` under kernels:
+    one mesh rank's rows ``[row_start, row_start + n_loc)`` of the gathered
+    container leaf ``p_full`` / ``s_full`` (of shape ``shape``) against
+    all its rows.  A leaf with a dequant form goes to K7
+    (``kops.dequant_stats_rect``) on its payload and multipliers, the
+    rank's rows a view of them; identity and top-k leaves decode the
+    gathered payload and take K6 (``kops.pairwise_stats_rect``).  The JAX
+    function takes the rank's payload rows as operands of their own; here
+    they are the gathered leaf's, so the kernels read them from the
+    gathered stack.  ``n`` is the true worker count (the kernels take K1's
+    chunk count for it), so the block equals the matching rows of K5 (K1)
+    on the replicated path bit for bit."""
+    rows = slice(row_start, row_start + n_loc)
+    form = codec.dequant_form(p_full, s_full)
+    if form is not None:
+        pf, mf = form[0].contiguous(), form[1].float().contiguous()
+        return kops.dequant_stats_rect(pf[rows], mf[rows], pf, mf, n=n)
+    g = codec.decode_leaf(p_full, s_full, shape).contiguous()
+    return kops.pairwise_stats_rect(g[rows], g, n=n)
+
+
 def encoded_raw_stats(enc: EncodedGrads, *, use_kernels: bool = False
                       ) -> Tuple[Tensor, Tensor]:
     """((n, n) unfinalised sq-dists, (n,) sq-norms) summed over the

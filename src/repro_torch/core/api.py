@@ -22,14 +22,24 @@ The statistics and the apply accept a ``repro_torch.comm``
 run on the payloads (K5 under ``use_kernels`` for the int8 / bf16 leaves),
 and the apply decodes first.  The pre-aggregation transforms (worker
 momentum, clipping, nearest-neighbour mixing) rewrite the stack before the
-rule.  The mesh branch of the JAX module is not ported yet.
+rule.
+
+With a :class:`MeshContext` the statistics run mesh-native on a
+``torch.distributed`` ``DeviceMesh`` (the JAX package's DESIGN.md §10):
+each rank passes its :class:`RowBlock` of the stack, computes only its
+rows of the (n, n) matrix (K6 / K7 under ``use_kernels``), and the
+blocks are gathered into the replicated statistics every rank's plan
+needs.  The mesh branch of the apply is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm.container import EncodedGrads
 from repro_torch.core import attacks as ATK
@@ -85,12 +95,18 @@ def finalize_dists(total: Tensor) -> Tensor:
                                     device=total.device))
 
 
-def raw_pairwise_stats(grads: Tree, *, use_kernels: bool = False
+def raw_pairwise_stats(grads: Tree, *, use_kernels: bool = False,
+                       mesh_ctx: Optional["MeshContext"] = None
                        ) -> Tuple[Tensor, Tensor]:
     """(raw (n, n) sq-dists, (n,) sq-norms) summed over the leaves in
     sorted key-path order; unclamped, diagonal kept.  Under
     ``use_kernels`` each leaf is one K1 launch (one read of the leaf); a
-    wire container's int8 / bf16 leaves are one K5 launch each."""
+    wire container's int8 / bf16 leaves are one K5 launch each.  With
+    ``mesh_ctx``, ``grads`` is this rank's :class:`RowBlock` and the pass
+    is :func:`sharded_raw_stats`."""
+    if mesh_ctx is not None:
+        return sharded_raw_stats(grads, mesh_ctx=mesh_ctx,
+                                 use_kernels=use_kernels)
     enc = _as_encoded(grads)
     if enc is not None:
         from repro_torch.comm import codecs as CC
@@ -120,10 +136,13 @@ def tree_pairwise_sqdist(grads: Tree, *, use_kernels: bool = False
     return tree_pairwise_stats(grads, use_kernels=use_kernels)[0]
 
 
-def tree_pairwise_stats(grads: Tree, *, use_kernels: bool = False
+def tree_pairwise_stats(grads: Tree, *, use_kernels: bool = False,
+                        mesh_ctx: Optional["MeshContext"] = None
                         ) -> Tuple[Tensor, Tensor]:
-    """Single pass over the stack: (finalised (n, n) sq-dists, (n,) norms)."""
-    total_d, total_s = raw_pairwise_stats(grads, use_kernels=use_kernels)
+    """Single pass over the stack: (finalised (n, n) sq-dists, (n,) norms);
+    mesh-native with ``mesh_ctx`` (:func:`raw_pairwise_stats`)."""
+    total_d, total_s = raw_pairwise_stats(grads, use_kernels=use_kernels,
+                                          mesh_ctx=mesh_ctx)
     return finalize_dists(total_d), total_s
 
 
@@ -140,11 +159,33 @@ def tree_sq_norms(grads: Tree) -> Tensor:
 
 def compute_stats(grads: Tree, f: int, *, needs_dists: bool = True,
                   needs_norms: bool = False, use_kernels: bool = False,
-                  dists: Optional[Tensor] = None) -> AggStats:
+                  dists: Optional[Tensor] = None,
+                  mesh_ctx: Optional["MeshContext"] = None) -> AggStats:
     """Build the :class:`AggStats` a rule's ``plan`` consumes; only what
     the flags ask for is computed (the norms come free with distances).
     ``grads`` may be a wire container: the statistics then run on its
-    payloads, without decoding the stack here."""
+    payloads, without decoding the stack here.
+
+    With ``mesh_ctx`` the statistics run mesh-native: ``grads`` is this
+    rank's :class:`RowBlock` (of a tree or a wire container, cut by
+    :func:`row_block`), every rank computes its rows of the (n, n) matrix
+    (:func:`sharded_raw_stats`), and every rank gets the same replicated
+    statistics.  Norms alone are each rank's row sums, gathered."""
+    if mesh_ctx is not None:
+        block = _row_block_arg(grads)
+        norms = None
+        if needs_dists and dists is None:
+            raw, norms = sharded_raw_stats(block, mesh_ctx=mesh_ctx,
+                                           use_kernels=use_kernels)
+            dists = finalize_dists(raw)
+        if needs_norms and norms is None:
+            if _as_encoded(block.rows) is not None:
+                norms = sharded_raw_stats(block, mesh_ctx=mesh_ctx,
+                                          use_kernels=use_kernels)[1]
+            else:
+                norms = _gather_rows(tree_sq_norms(block.rows),
+                                     mesh_ctx)[:block.n]
+        return AggStats(n=block.n, f=f, dists=dists, sq_norms=norms)
     enc = _as_encoded(grads)
     if enc is not None:
         norms = None
@@ -163,6 +204,288 @@ def compute_stats(grads: Tree, f: int, *, needs_dists: bool = True,
     if needs_norms and norms is None:
         norms = tree_sq_norms(grads)
     return AggStats(n=n, f=f, dists=dists, sq_norms=norms)
+
+
+# ==========================================================================
+# mesh-native statistics (cf. the JAX package's DESIGN.md §10)
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """Where the mesh-native statistics run: a ``torch.distributed``
+    ``DeviceMesh`` (``launch.mesh.make_host_mesh``), the mesh axes that
+    carry the byzantine worker dimension (``("pod", "data")`` multi-pod,
+    ``("data",)`` single-pod) and the tensor-parallel axis (``None``: no
+    d-sharding).  It holds one process group over the worker axes and one
+    over the model axis, made at first use: every rank must reach them
+    in the same order, as it reaches any collective."""
+
+    mesh: Any
+    worker_axes: Tuple[str, ...] = ("data",)
+    model_axis: Optional[str] = "model"
+
+    @classmethod
+    def for_mesh(cls, mesh, worker_axes: Optional[Sequence[str]] = None
+                 ) -> "MeshContext":
+        """Derive the canonical context from a mesh's axis names."""
+        names = tuple(mesh.mesh_dim_names)
+        if worker_axes is None:
+            worker_axes = ("pod", "data") if "pod" in names else ("data",)
+        missing = [a for a in worker_axes if a not in names]
+        if missing:
+            raise ValueError(
+                f"worker axes {missing} not in mesh axes {names}")
+        return cls(mesh=mesh, worker_axes=tuple(worker_axes),
+                   model_axis="model" if "model" in names else None)
+
+    @property
+    def _sizes(self) -> Dict[str, int]:
+        return dict(zip(self.mesh.mesh_dim_names,
+                        (int(s) for s in self.mesh.shape)))
+
+    @property
+    def worker_size(self) -> int:
+        return math.prod(self._sizes[a] for a in self.worker_axes)
+
+    @property
+    def model_size(self) -> int:
+        return self._sizes[self.model_axis] \
+            if self.model_axis is not None else 1
+
+    @property
+    def worker_index(self) -> int:
+        """Flat index of this rank's worker shard, pod-major (the JAX
+        package's ``_worker_index``)."""
+        idx = 0
+        for a in self.worker_axes:
+            idx = idx * self._sizes[a] + self.mesh.get_local_rank(a)
+        return idx
+
+    @property
+    def model_index(self) -> int:
+        return self.mesh.get_local_rank(self.model_axis) \
+            if self.model_axis is not None else 0
+
+    @functools.cached_property
+    def worker_group(self):
+        """The process group of the ranks that share this rank's model
+        coordinate, in worker order."""
+        if len(self.worker_axes) == 1:
+            return self.mesh.get_group(self.worker_axes[0])
+        names = list(self.mesh.mesh_dim_names)
+        keep = [names.index(a) for a in self.worker_axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        ranks = self.mesh.mesh.permute(*rest, *keep).reshape(
+            -1, self.worker_size).tolist()
+        return dist.new_subgroups_by_enumeration(ranks)[0]
+
+    @functools.cached_property
+    def model_group(self):
+        return self.mesh.get_group(self.model_axis) \
+            if self.model_axis is not None else None
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlock:
+    """One mesh rank's share of a stacked gradient tree or a wire
+    container: ``rows`` holds its n_loc = ceil(n / W) worker rows (rows
+    past the n-th are zeros), ``n`` the true worker count."""
+
+    rows: Tree
+    n: int
+
+
+def worker_rows(n: int, ctx: MeshContext) -> Tuple[int, int]:
+    """(first row, n_loc) of this rank's block: the worker axis zero-padded
+    to n_pad = W ceil(n / W) rows, cut into W blocks."""
+    n_loc = -(-n // ctx.worker_size)
+    return ctx.worker_index * n_loc, n_loc
+
+
+def _pad_rows(x: Tensor, n_pad: int) -> Tensor:
+    if x.shape[0] == n_pad:
+        return x
+    pad = x.new_zeros((n_pad - x.shape[0],) + tuple(x.shape[1:]))
+    return torch.cat([x, pad])
+
+
+def row_block(grads: Tree, ctx: MeshContext) -> RowBlock:
+    """This rank's :class:`RowBlock` of a stacked tree or wire container
+    (payload and sidecar rows cut alike, the container's byte count
+    re-derived for its rows): the torch counterpart of the worker axis of
+    ``repro.dist.sharding.grad_stack_specs``."""
+    enc = _as_encoded(grads)
+    leaves = tree_leaves(enc.payload if enc is not None else grads)
+    if not leaves:
+        raise ValueError("empty gradient tree")
+    n = enc.n if enc is not None else leaves[0].shape[0]
+    start, n_loc = worker_rows(n, ctx)
+
+    def cut(x):
+        if x.shape[0] != n:
+            raise ValueError("all leaves must share the worker axis size")
+        return _pad_rows(x[start:start + n_loc], n_loc)
+
+    if enc is None:
+        return RowBlock(rows=tree_map(cut, grads), n=n)
+    from repro_torch.comm import codecs as CC
+    shapes = tuple((n_loc,) + tuple(s[1:]) for s in enc.shapes)
+    rows = EncodedGrads(
+        payload=tree_map(cut, enc.payload),
+        sidecar=None if enc.sidecar is None else tree_map(cut, enc.sidecar),
+        spec=enc.spec, n=n_loc, shapes=shapes,
+        wire_bytes=sum(CC.get_codec(enc.spec).leaf_wire_bytes(s)
+                       for s in shapes))
+    return RowBlock(rows=rows, n=n)
+
+
+def column_tile(block: RowBlock, ctx: MeshContext) -> RowBlock:
+    """The (n_loc, d/M) column tile of every leaf of a tree's row block,
+    each leaf flattened and zero-padded to a multiple of M columns: the
+    input of :func:`sharded_raw_stats_model_axis` (the model axis of
+    ``grad_stack_specs``)."""
+    M, k = ctx.model_size, ctx.model_index
+
+    def tile(x):
+        x2 = _leaf2d(x)
+        m = -(-x2.shape[1] // M)
+        x2 = torch.nn.functional.pad(x2, (0, M * m - x2.shape[1]))
+        return x2[:, k * m:(k + 1) * m].contiguous()
+
+    return RowBlock(rows=tree_map(tile, block.rows), n=block.n)
+
+
+def _row_block_arg(grads) -> RowBlock:
+    if not isinstance(grads, RowBlock):
+        raise TypeError(f"the mesh-native statistics take this rank's "
+                        f"RowBlock (core.api.row_block), got "
+                        f"{type(grads).__name__}")
+    return grads
+
+
+def _gather_rows(x: Tensor, ctx: MeshContext) -> Tensor:
+    """Every worker shard's rows of ``x``, stacked in worker order (one
+    all-gather over the worker group)."""
+    x = x.contiguous()
+    out = x.new_empty((ctx.worker_size * x.shape[0],) + tuple(x.shape[1:]))
+    # newer torch names it all_gather_single and warns on the old name
+    # (2.13 does); older releases have only all_gather_into_tensor (2.11)
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, x, group=ctx.worker_group)
+    return out
+
+
+def _block_stats_contrib(x_loc: Tensor, x_full: Tensor
+                         ) -> Tuple[Tensor, Tensor]:
+    """Row-block partial of :func:`_leaf_stats_contrib`: the raw (n_loc, n)
+    block of ``x_loc``'s rows against the stack ``x_full`` and the stack's
+    (n,) norms, from those two alone (O(n_loc n d) work).  The plain
+    formula in fp32: BLAS may sum a row subset in another order than the
+    whole product, so the block is close to, not bitwise, the replicated
+    rows (K6 is bitwise to K1's)."""
+    xl = _leaf2d(x_loc).float()
+    xf = _leaf2d(x_full).float()
+    sq_full = torch.sum(xf * xf, dim=1)
+    sq_loc = torch.sum(xl * xl, dim=1)
+    gram = xl @ xf.T
+    return sq_loc[:, None] + sq_full[None, :] - 2.0 * gram, sq_full
+
+
+def _assemble(total_d: Tensor, total_s: Tensor, n: int, ctx: MeshContext
+              ) -> Tuple[Tensor, Tensor]:
+    """The rank blocks gathered into the replicated (n, n) and (n,)."""
+    return _gather_rows(total_d, ctx)[:n, :n].contiguous(), total_s[:n]
+
+
+def sharded_raw_stats(grads: RowBlock, *, mesh_ctx: MeshContext,
+                      use_kernels: bool = False) -> Tuple[Tensor, Tensor]:
+    """Mesh-native single pass: (raw (n, n) sq-dists, (n,) sq-norms), the
+    same on every rank.
+
+    ``grads`` is this rank's :class:`RowBlock` of a tree or a wire
+    container.  Leaf by leaf, in sorted key-path order, the rank gathers
+    the leaf's rows over the worker group, computes its (n_loc, n_pad)
+    block of the leaf's contribution (its rows are a view of the gathered
+    stack) and adds it to its running block: under ``use_kernels`` K6
+    (``kops.pairwise_stats_rect``) for a tree leaf, K7 or K6 for a wire
+    leaf (``comm.codecs.encoded_leaf_block_contrib``), otherwise the plain
+    block formula (:func:`_block_stats_contrib`; a wire leaf is decoded
+    first).  The blocks are then gathered and the padding sliced away.
+    The kernels take K1's chunk count for the true n, so each block is
+    K1's (K5's) matching rows bit for bit and the result is the
+    replicated kernel path's bit for bit.
+    """
+    block = _row_block_arg(grads)
+    return _assemble(*_local_block(block, mesh_ctx, use_kernels), block.n,
+                     mesh_ctx)
+
+
+def sharded_raw_stats_model_axis(grads: RowBlock, *, mesh_ctx: MeshContext,
+                                 use_kernels: bool = False
+                                 ) -> Tuple[Tensor, Tensor]:
+    """Model-axis-sharded single pass: raw ((n, n) sq-dists, (n,) norms)
+    from (n_loc, d/M) leaf tiles (:func:`column_tile`).
+
+    Each rank gathers only its column tile's worker rows, computes the
+    rectangular block on the (n_loc, d/M) x (n_pad, d/M) tile pair (K6
+    under ``use_kernels``), and the partial blocks are summed over the
+    model group before the blocks are gathered.  The model-axis sum is
+    another summation order than the full-d contraction, so the result
+    equals :func:`sharded_raw_stats` bit for bit at M = 1 and to about
+    1e-6 at M > 1, as in the JAX package."""
+    block = _row_block_arg(grads)
+    total_d, total_s = _local_block(block, mesh_ctx, use_kernels)
+    if mesh_ctx.model_group is not None:
+        dist.all_reduce(total_d, group=mesh_ctx.model_group)
+        dist.all_reduce(total_s, group=mesh_ctx.model_group)
+    return _assemble(total_d, total_s, block.n, mesh_ctx)
+
+
+def _local_block(block: RowBlock, ctx: MeshContext, use_kernels: bool
+                 ) -> Tuple[Tensor, Tensor]:
+    """This rank's raw (n_loc, n_pad) block and the (n_pad,) norms, summed
+    over the leaves of ``block`` (:func:`sharded_raw_stats`)."""
+    n = block.n
+    start, n_loc = worker_rows(n, ctx)
+    n_pad = n_loc * ctx.worker_size
+    enc = _as_encoded(block.rows)
+    if enc is not None:
+        from repro_torch.comm import codecs as CC
+        codec = CC.get_codec(enc.spec)
+        items = list(zip(tree_leaves(enc.payload), CC.sidecar_leaves(enc),
+                         enc.shapes))
+    else:
+        items = [(x, None, None) for x in tree_leaves(block.rows)]
+    if not items:
+        raise ValueError("empty gradient tree")
+    dev = items[0][0].device
+    total_d = torch.zeros((n_loc, n_pad), dtype=torch.float32, device=dev)
+    total_s = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    rows = slice(start, start + n_loc)
+    for x, s, shape in items:
+        if x.shape[0] != n_loc:
+            raise ValueError(f"a row block of {n} workers on "
+                             f"{ctx.worker_size} worker shards has {n_loc} "
+                             f"rows, got {x.shape[0]}")
+        full = _gather_rows(x, ctx)
+        if enc is not None:
+            s_full = None if s is None else _gather_rows(s, ctx)
+            shape = (n_pad,) + tuple(shape[1:])
+            if use_kernels:
+                dd, sq = CC.encoded_leaf_block_contrib(
+                    codec, full, s_full, shape, row_start=start,
+                    n_loc=n_loc, n=n)
+            else:
+                g = codec.decode_leaf(full, s_full, shape)
+                dd, sq = _block_stats_contrib(g[rows], g)
+        elif use_kernels:
+            full = _leaf2d(full).float().contiguous()
+            dd, sq = kops.pairwise_stats_rect(full[rows], full, n=n)
+        else:
+            dd, sq = _block_stats_contrib(full[rows], full)
+        total_d = total_d + dd
+        total_s = total_s + sq
+    return total_d, total_s
 
 
 # ==========================================================================

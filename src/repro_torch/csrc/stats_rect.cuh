@@ -1,0 +1,234 @@
+// The rectangular statistics template of K6 (pairwise_stats_rect.cu) and
+// K7 (dequant_stats_rect.cu), and the loaders of K6, K7 and K4
+// (pairwise_sqdist.cu), on K1's template (stats_tile.cuh).
+//
+// A rank of the mesh holds its (n_loc, d) row block and the gathered
+// (n_full, d) stack.  One grid of d-chunks computes the partial grams of
+// every local row against every full row, and the self products of both;
+// a second kernel sums the chunks in chunk order into the raw (n_loc,
+// n_full) block sq_l + sq_f - 2 g (unclamped, diagonal kept) and the
+// (n_full,) squared norms.  Each element repeats K1's arithmetic for the
+// same two rows exactly:
+//   * the chunk count is K1's for the true worker count (the wrapper takes
+//     it from launch_config(n, d)), so the 256-thread grid-stride column
+//     walk (stats_tile.cuh:54-55) visits the same columns in each thread;
+//   * each thread accumulates fmaf(x_i[c], x_j[c], acc) in column order
+//     (fmaf(a, b, c) == fmaf(b, a, c): the operands' order is free);
+//   * the block reduces with stats_tile::warp_sum, then sums the warps in
+//     warp order from 0, into its chunk's slot of the scratch;
+//   * the finalize sums the chunks in chunk order with __fadd_rn and forms
+//     (si + sj) - 2 g as K1's finalize_kernel does; the norms are the
+//     self products (K1's gram diagonal), not a separate sum of squares.
+// None of this depends on the register tile, so the tiles here are free
+// to differ from K1's: the block equals K1's matching rows bit for bit.
+//
+// Scratch: (chunks, n_loc, n_full) cross partials, (chunks, n_loc) and
+// (chunks, n_full) self partials; never (chunks, n, n).  Rows past a
+// tile's end are exact zeros in registers.  All offsets are 64-bit.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "stats_tile.cuh"
+
+namespace stats_rect {
+
+using stats_tile::kThreads;
+using stats_tile::kWarps;
+using stats_tile::warp_sum;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// An (n, d) stack widened to fp32: for float, K1's loader
+// (pairwise_stats.cu, F32Rows); bf16 widens exactly.
+template <class T>
+struct Rows {
+  const T* x;
+  int64_t d;
+  __device__ __forceinline__ float load(int64_t row, int64_t col) const {
+    return widen(__ldg(x + row * d + col));
+  }
+};
+
+// K5's loader (dequant_stats.cu, DequantRows), the same code: the payload
+// widened and scaled by its row's multiplier, __fmul_rn so that nvcc does
+// not fuse the decode into the following FMA.
+template <class T>
+struct DequantRows {
+  const T* p;
+  const float* mult;
+  int64_t d;
+  __device__ __forceinline__ float load(int64_t row, int64_t col) const {
+    return __fmul_rn(widen(__ldg(p + row * d + col)), __ldg(mult + row));
+  }
+};
+
+// One block: local rows i0..i0+RL against full rows j0..j0+RF over the
+// columns of chunk `chunk` (K1's blockIdx.x).  The block of the first full
+// tile writes the local rows' self products, the block of the first local
+// tile the full rows'.
+template <int RL, int RF, class Loc, class Full>
+__device__ void rect_pair(const Loc& loc, const Full& full,
+                          float* __restrict__ part_g, float* __restrict__ part_l,
+                          float* __restrict__ part_f, int64_t n_loc,
+                          int64_t n_full, int64_t d, int64_t i0, int64_t j0,
+                          int64_t chunk, int64_t chunks, bool local_norms,
+                          bool full_norms) {
+  constexpr int kCross = RL * RF;
+  constexpr int kSlots = kCross + RL + RF;
+  float acc[kCross];
+  float sl[RL];
+  float sf[RF];
+#pragma unroll
+  for (int p = 0; p < kCross; ++p) acc[p] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < RL; ++r) sl[r] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < RF; ++r) sf[r] = 0.0f;
+
+  const int64_t stride = chunks * (int64_t)kThreads;
+  for (int64_t c = chunk * kThreads + threadIdx.x; c < d; c += stride) {
+    float a[RL];
+    float b[RF];
+#pragma unroll
+    for (int r = 0; r < RL; ++r) a[r] = (i0 + r < n_loc) ? loc.load(i0 + r, c) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < RF; ++r) b[r] = (j0 + r < n_full) ? full.load(j0 + r, c) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+#pragma unroll
+      for (int j = 0; j < RF; ++j) acc[i * RF + j] = fmaf(a[i], b[j], acc[i * RF + j]);
+    }
+#pragma unroll
+    for (int r = 0; r < RL; ++r) sl[r] = fmaf(a[r], a[r], sl[r]);
+#pragma unroll
+    for (int r = 0; r < RF; ++r) sf[r] = fmaf(b[r], b[r], sf[r]);
+  }
+
+  __shared__ float red[kWarps][kSlots];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int p = 0; p < kCross; ++p) {
+    const float v = warp_sum(acc[p]);
+    if (lane == 0) red[warp][p] = v;
+  }
+#pragma unroll
+  for (int r = 0; r < RL; ++r) {
+    const float v = warp_sum(sl[r]);
+    if (lane == 0) red[warp][kCross + r] = v;
+  }
+#pragma unroll
+  for (int r = 0; r < RF; ++r) {
+    const float v = warp_sum(sf[r]);
+    if (lane == 0) red[warp][kCross + RL + r] = v;
+  }
+  __syncthreads();
+
+  for (int p = threadIdx.x; p < kSlots; p += kThreads) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += red[w][p];
+    if (p < kCross) {
+      const int64_t gi = i0 + p / RF;
+      const int64_t gj = j0 + p % RF;
+      if (gi < n_loc && gj < n_full) part_g[(chunk * n_loc + gi) * n_full + gj] = s;
+    } else if (p < kCross + RL) {
+      const int64_t gi = i0 + (p - kCross);
+      if (local_norms && gi < n_loc) part_l[chunk * n_loc + gi] = s;
+    } else {
+      const int64_t gj = j0 + (p - kCross - RL);
+      if (full_norms && gj < n_full) part_f[chunk * n_full + gj] = s;
+    }
+  }
+}
+
+// blockIdx.x enumerates the tile pairs (I, J) of ceil(n_loc / RL) local
+// tiles x ceil(n_full / RF) full tiles, row-major, and blockIdx.y the
+// chunks: the pairs of one chunk are neighbours in launch order, so they
+// run together and share the chunk's columns in L2.  Tiles of at most 48
+// cross accumulators are held to 128 registers, two blocks an SM (the
+// int8 loader's (4, 12) tile took 136 and ran one).
+template <int RL, int RF, class Loc, class Full>
+__global__ void __launch_bounds__(kThreads, (RL * RF <= 48) ? 2 : 1)
+rect_gram_kernel(const Loc loc, const Full full, float* __restrict__ part_g,
+                 float* __restrict__ part_l, float* __restrict__ part_f,
+                 int64_t n_loc, int64_t n_full, int64_t d, int64_t chunks) {
+  const int64_t tiles_full = (n_full + RF - 1) / RF;
+  const int64_t I = (int64_t)blockIdx.x / tiles_full;
+  const int64_t J = (int64_t)blockIdx.x % tiles_full;
+  rect_pair<RL, RF>(loc, full, part_g, part_l, part_f, n_loc, n_full, d,
+                    I * RL, J * RF, blockIdx.y, chunks, J == 0, I == 0);
+}
+
+// dists[i, j] = (sl_i + sf_j) - 2 g_ij with every sum over chunks in chunk
+// order (K1's finalize_kernel on one row block); norms[j] = sf_j.
+__global__ void rect_finalize_kernel(const float* __restrict__ part_g,
+                                     const float* __restrict__ part_l,
+                                     const float* __restrict__ part_f,
+                                     float* __restrict__ dists,
+                                     float* __restrict__ norms, int64_t n_loc,
+                                     int64_t n_full, int64_t chunks) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_loc * n_full) return;
+  const int64_t i = idx / n_full;
+  const int64_t j = idx % n_full;
+  float g = 0.0f, si = 0.0f, sj = 0.0f;
+  for (int64_t c = 0; c < chunks; ++c) {
+    g = __fadd_rn(g, part_g[c * n_loc * n_full + idx]);
+    si = __fadd_rn(si, part_l[c * n_loc + i]);
+    sj = __fadd_rn(sj, part_f[c * n_full + j]);
+  }
+  dists[idx] = __fsub_rn(__fadd_rn(si, sj), __fmul_rn(2.0f, g));
+  if (i == 0) norms[j] = sj;
+}
+
+// Both kernels on `s`.  part_g: (chunks, n_loc, n_full), part_l: (chunks,
+// n_loc), part_f: (chunks, n_full) fp32 scratch; dists: (n_loc, n_full);
+// norms: (n_full,).  tile_loc is 4 or 8, tile_full 8, 12 or 16.  Returns
+// cudaGetLastError() (0 on success).
+template <class Loc, class Full>
+int launch_rect(const Loc& loc, const Full& full, void* part_g, void* part_l,
+                void* part_f, void* dists, void* norms, int64_t n_loc,
+                int64_t n_full, int64_t d, int64_t chunks, int64_t tile_loc,
+                int64_t tile_full, cudaStream_t s) {
+  const int64_t pairs = ((n_loc + tile_loc - 1) / tile_loc) *
+                        ((n_full + tile_full - 1) / tile_full);
+  if (n_loc <= 0 || n_full <= 0 || d <= 0 || chunks <= 0 || chunks > 65535 ||
+      pairs > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dim3 grid((unsigned)pairs, (unsigned)chunks);
+  float* pg = (float*)part_g;
+  float* pl = (float*)part_l;
+  float* pf = (float*)part_f;
+#define STATS_RECT_LAUNCH(RL, RF)                                           \
+  rect_gram_kernel<RL, RF><<<grid, kThreads, 0, s>>>(loc, full, pg, pl, pf, \
+                                                     n_loc, n_full, d, chunks)
+  if (tile_loc == 4 && tile_full == 8) {
+    STATS_RECT_LAUNCH(4, 8);
+  } else if (tile_loc == 4 && tile_full == 12) {
+    STATS_RECT_LAUNCH(4, 12);
+  } else if (tile_loc == 4 && tile_full == 16) {
+    STATS_RECT_LAUNCH(4, 16);
+  } else if (tile_loc == 8 && tile_full == 8) {
+    STATS_RECT_LAUNCH(8, 8);
+  } else if (tile_loc == 8 && tile_full == 12) {
+    STATS_RECT_LAUNCH(8, 12);
+  } else if (tile_loc == 8 && tile_full == 16) {
+    STATS_RECT_LAUNCH(8, 16);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef STATS_RECT_LAUNCH
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t cells = n_loc * n_full;
+  const int threads = 256;
+  rect_finalize_kernel<<<(unsigned)((cells + threads - 1) / threads), threads, 0, s>>>(
+      pg, pl, pf, (float*)dists, (float*)norms, n_loc, n_full, chunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace stats_rect

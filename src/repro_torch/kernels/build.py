@@ -23,7 +23,8 @@ from typing import Dict, Sequence, Tuple
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("pairwise_stats", "fused_select", "dequant_stats", "coord_select")
+KERNELS = ("pairwise_stats", "fused_select", "dequant_stats", "coord_select",
+           "pairwise_stats_rect", "dequant_stats_rect", "pairwise_sqdist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,4 +1,5 @@
-"""K5: the fused dequantize -> statistics kernel (CUDA, ``csrc/dequant_stats.cu``).
+"""K5 and K7: the fused dequantize -> statistics kernels (CUDA,
+``csrc/dequant_stats.cu`` and ``csrc/dequant_stats_rect.cu``).
 
 Replaces ``repro/kernels/dequant_stats.py::dequant_stats_pallas``: an
 (n, d) int8 or bf16 wire payload (fp32 accepted) + (n,) fp32 row
@@ -8,17 +9,24 @@ stack in device memory.  The kernel is K1's template with a widening
 loader, launched with K1's :func:`launch_config`, so on the card it equals
 K1 on the decoded stack bit for bit.  Its plain version is
 ``kernels/ref.py::dequant_stats_ref``.
+
+K7 replaces ``dequant_stats_rect_pallas``: one mesh rank's (n_loc, d)
+payload block and multipliers against the gathered payload, K6's
+rectangular template with K5's loader, equal to K5's matching rows bit for
+bit.  Its plain version is ``ref.dequant_stats_rect_ref``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.pairwise_sqdist import launch_config
+from repro_torch.kernels.pairwise_sqdist import (check_rect_args, data_ptr,
+                                                 is_whole, launch_config,
+                                                 rect_scratch)
 
 #: payload types the kernel reads, by the code its C entry point takes
 DTYPE_CODES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
@@ -85,3 +93,75 @@ def dequant_stats_cuda(payload: torch.Tensor, mult: torch.Tensor
 
 
 dequant_stats_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _rect_launch_fn():
+    fn = build.library("dequant_stats_rect").dequant_stats_rect_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_dequant_rect_args(p_loc: torch.Tensor, m_loc: torch.Tensor,
+                            p_full: torch.Tensor, m_full: torch.Tensor,
+                            n: Optional[int]) -> int:
+    """The contract of ``dequant_stats_rect_pallas`` (one payload type for
+    block and stack); returns the worker count the chunk count is K1's
+    for."""
+    n = check_rect_args(p_loc, p_full, n)
+    check_dequant_args(p_loc, m_loc)
+    check_dequant_args(p_full, m_full)
+    if p_loc.dtype != p_full.dtype:
+        raise ValueError(f"payload dtypes differ: {p_loc.dtype} vs "
+                         f"{p_full.dtype}")
+    return n
+
+
+def dequant_stats_rect_cuda(p_loc: torch.Tensor, m_loc: torch.Tensor,
+                            p_full: torch.Tensor, m_full: torch.Tensor, *,
+                            n: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K7 on a contiguous (n_loc, d) payload block + (n_loc,) fp32
+    multipliers and the gathered (n_full, d) payload + (n_full,)
+    multipliers, all on one CUDA device.  ``n`` is the true worker count
+    when the payload carries padding rows (default: all its rows).
+    Returns (raw (n_loc, n_full) block, (n_full,) squared norms) of the
+    decoded rows, fp32, on the current stream.  Raises on any input the
+    kernel does not take."""
+    n = check_dequant_rect_args(p_loc, m_loc, p_full, m_full, n)
+    for name, t in (("p_loc", p_loc), ("m_loc", m_loc), ("p_full", p_full),
+                    ("m_full", m_full)):
+        if t.device.type != "cuda" or t.device != p_full.device:
+            raise ValueError(f"dequant_stats_rect_cuda needs {name} on the "
+                             f"CUDA device of p_full, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"dequant_stats_rect_cuda needs a contiguous "
+                             f"{name}")
+    if m_loc.dtype != torch.float32 or m_full.dtype != torch.float32:
+        raise ValueError(f"dequant_stats_rect_cuda needs float32 "
+                         f"multipliers, got {m_loc.dtype} / {m_full.dtype}")
+    square = is_whole(p_loc, p_full, n) and is_whole(m_loc, m_full, n)
+    chunks, tiles, scratch, (dists, norms) = rect_scratch(
+        p_loc, p_full, n, square)
+    (n_loc, d), n_full = p_loc.shape, p_full.shape[0]
+    fn = _rect_launch_fn()
+    with torch.cuda.device(p_full.device):
+        stream = torch.cuda.current_stream(p_full.device).cuda_stream
+        err = fn(p_loc.data_ptr(), m_loc.data_ptr(), p_full.data_ptr(),
+                 m_full.data_ptr(), DTYPE_CODES[p_full.dtype],
+                 *(data_ptr(t) for t in scratch), dists.data_ptr(),
+                 norms.data_ptr(), n_loc, n_full, d, chunks, *tiles, stream)
+    if err != 0:
+        raise RuntimeError(f"dequant_stats_rect kernel launch failed "
+                           f"(cudaError {err}) for payload {p_full.dtype} "
+                           f"{tuple(p_loc.shape)} x {tuple(p_full.shape)}")
+    dequant_stats_rect_cuda.launches += 1
+    dequant_stats_rect_cuda.square_launches += square
+    return dists, norms
+
+
+dequant_stats_rect_cuda.launches = 0
+#: of those launches, the ones that ran K5's symmetric grid (is_whole)
+dequant_stats_rect_cuda.square_launches = 0

@@ -7,21 +7,29 @@ raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.coord_select import check_coord_args, coord_select_cuda
 from repro_torch.kernels.dequant_stats import (check_dequant_args,
-                                               dequant_stats_cuda)
+                                               check_dequant_rect_args,
+                                               dequant_stats_cuda,
+                                               dequant_stats_rect_cuda)
 from repro_torch.kernels.fused_select import check_select_args, fused_select_cuda
-from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
+from repro_torch.kernels.pairwise_sqdist import (check_rect_args,
+                                                 pairwise_sqdist_cuda,
+                                                 pairwise_stats_cuda,
+                                                 pairwise_stats_rect_cuda)
 
 _WRAPPERS = {"pairwise_stats": pairwise_stats_cuda,
              "fused_select": fused_select_cuda,
              "dequant_stats": dequant_stats_cuda,
-             "coord_select": coord_select_cuda}
+             "coord_select": coord_select_cuda,
+             "pairwise_stats_rect": pairwise_stats_rect_cuda,
+             "dequant_stats_rect": dequant_stats_rect_cuda,
+             "pairwise_sqdist": pairwise_sqdist_cuda}
 
 
 def pairwise_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -44,6 +52,50 @@ def dequant_stats(payload: torch.Tensor, mult: torch.Tensor
     if payload.device.type == "cpu":
         return ref.dequant_stats_ref(payload, mult)
     return dequant_stats_cuda(payload, mult)
+
+
+def pairwise_stats_rect(x_loc: torch.Tensor, x_full: torch.Tensor, *,
+                        n: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A mesh rank's row block: (n_loc, d) block x (n_full, d) stack ->
+    (raw (n_loc, n_full) block, (n_full,) sq-norms), fp32, the block's rows
+    of :func:`pairwise_stats` on the stack.  ``n``: the true worker count
+    when the stack carries padding rows (the kernel takes K1's chunk count
+    for it; the plain version does not depend on it).
+
+    On the card the grid depends on memory, not values: when ``x_loc`` is
+    ``x_full`` itself (one tensor, same shape, no padding rows: a one-rank
+    mesh) the kernel runs K1's symmetric grid, each product once; any
+    other block, a copy of the whole stack included, runs the rectangular
+    grid, each product of the block formed separately.  Both give the same
+    bits; :func:`square_launch_counts` says which ran."""
+    check_rect_args(x_loc, x_full, n)
+    if x_full.device.type == "cpu":
+        return ref.pairwise_stats_rect_ref(x_loc, x_full)
+    return pairwise_stats_rect_cuda(x_loc, x_full, n=n)
+
+
+def dequant_stats_rect(p_loc: torch.Tensor, m_loc: torch.Tensor,
+                       p_full: torch.Tensor, m_full: torch.Tensor, *,
+                       n: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pairwise_stats_rect` of the decoded rows of a payload block
+    and the gathered payload (one payload type: int8, bf16 or fp32).  On
+    the card K5's symmetric grid runs when ``p_loc`` is ``p_full`` and
+    ``m_loc`` is ``m_full`` (the same tensors, no padding rows), the
+    rectangular grid otherwise."""
+    check_dequant_rect_args(p_loc, m_loc, p_full, m_full, n)
+    if p_full.device.type == "cpu":
+        return ref.dequant_stats_rect_ref(p_loc, m_loc, p_full, m_full)
+    return dequant_stats_rect_cuda(p_loc, m_loc, p_full, m_full, n=n)
+
+
+def pairwise_sqdist(x: torch.Tensor) -> torch.Tensor:
+    """(n, d) fp32 or bf16 -> finalised (n, n) fp32 squared distances
+    (clamped at 0, diagonal zeroed) in one pass."""
+    if x.device.type == "cpu":
+        return ref.pairwise_sqdist_ref(x)
+    return pairwise_sqdist_cuda(x)
 
 
 def fused_select(x: torch.Tensor, w_ext: torch.Tensor, w_agr: torch.Tensor,
@@ -70,6 +122,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def square_launch_counts() -> Dict[str, int]:
+    """Of the K6 and K7 launches in :func:`launch_counts`, those that ran the
+    square kernel's symmetric grid because the block was the stack."""
+    return {name: fn.square_launches for name, fn in _WRAPPERS.items()
+            if hasattr(fn, "square_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "square_launches"):
+            fn.square_launches = 0

@@ -44,6 +44,56 @@ def dequant_stats_ref(payload: Tensor, mult: Tensor, *, chunk: int = 1 << 20
     return _stats_over_pieces(payload, lambda pc: pc.float() * m, chunk)
 
 
+def pairwise_stats_rect_ref(x_loc: Tensor, x_full: Tensor, *,
+                            chunk: int = 1 << 20) -> Tuple[Tensor, Tensor]:
+    """(n_loc, d) row block x (n, d) stack -> (raw (n_loc, n) block
+    ``sq_l + sq_f - 2 gram``, (n,) sq-norms of the stack), fp32: the rows
+    of :func:`pairwise_stats_ref` for the block's rows, from the block and
+    the stack alone (O(n_loc n d) work), summed as it sums."""
+    return _rect_over_pieces(x_loc, x_full, lambda xc: xc.float(),
+                             lambda xc: xc.float(), chunk)
+
+
+def dequant_stats_rect_ref(p_loc: Tensor, m_loc: Tensor, p_full: Tensor,
+                           m_full: Tensor, *, chunk: int = 1 << 20
+                           ) -> Tuple[Tensor, Tensor]:
+    """:func:`pairwise_stats_rect_ref` of the decoded rows
+    ``payload.float() * mult[:, None]`` of a payload block and the
+    gathered payload (one payload type for both)."""
+    if p_loc.dtype != p_full.dtype:
+        raise ValueError(f"payload dtypes differ: {p_loc.dtype} vs "
+                         f"{p_full.dtype}")
+    ml, mf = m_loc.float()[:, None], m_full.float()[:, None]
+    return _rect_over_pieces(p_loc, p_full, lambda pc: pc.float() * ml,
+                             lambda pc: pc.float() * mf, chunk)
+
+
+def pairwise_sqdist_ref(x: Tensor) -> Tensor:
+    """(n, d) fp32 or bf16 -> finalised (n, n) squared distances:
+    ``core.api.finalize_dists`` of :func:`pairwise_stats_ref`."""
+    from repro_torch.core.api import finalize_dists
+    return finalize_dists(pairwise_stats_ref(x)[0])
+
+
+def _rect_over_pieces(x_loc: Tensor, x_full: Tensor, decode_loc,
+                      decode_full, chunk: int) -> Tuple[Tensor, Tensor]:
+    """:func:`_stats_over_pieces` for a row block against a stack."""
+    n_loc, d = x_loc.shape
+    n = x_full.shape[0]
+    dev = x_full.device
+    sq_l = torch.zeros((n_loc,), dtype=torch.float64, device=dev)
+    sq_f = torch.zeros((n,), dtype=torch.float64, device=dev)
+    gram = torch.zeros((n_loc, n), dtype=torch.float64, device=dev)
+    for c0 in range(0, d, chunk):
+        xl = decode_loc(x_loc[:, c0:c0 + chunk]).double()
+        xf = decode_full(x_full[:, c0:c0 + chunk]).double()
+        sq_l = sq_l + torch.sum(xl * xl, dim=1)
+        sq_f = sq_f + torch.sum(xf * xf, dim=1)
+        gram = gram + xl @ xf.T
+    sq_l, sq_f, gram = sq_l.float(), sq_f.float(), gram.float()
+    return sq_l[:, None] + sq_f[None, :] - 2.0 * gram, sq_f
+
+
 def _stats_over_pieces(x: Tensor, decode, chunk: int
                        ) -> Tuple[Tensor, Tensor]:
     n, d = x.shape

@@ -206,7 +206,10 @@ def test_ops_dequant_stats_takes_plain_version_on_cpu():
                     ref.dequant_stats_ref(p, mult)):
         assert torch.equal(a, b)
     assert ops.launch_counts() == {"pairwise_stats": 0, "fused_select": 0,
-                                   "dequant_stats": 0, "coord_select": 0}
+                                   "dequant_stats": 0, "coord_select": 0,
+                                   "pairwise_stats_rect": 0,
+                                   "dequant_stats_rect": 0,
+                                   "pairwise_sqdist": 0}
 
 
 def test_dequant_stats_rejects_bad_inputs():

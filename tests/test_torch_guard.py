@@ -59,6 +59,22 @@ def test_the_substrate_modules_are_covered():
         assert f"src/repro_torch/{want}" in names
 
 
+def test_the_mesh_modules_are_covered():
+    """The mesh statistics' modules and the K6 / K7 / K4 wrappers are among
+    the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("launch/mesh.py", "core/api.py", "comm/codecs.py",
+                 "kernels/pairwise_sqdist.py", "kernels/dequant_stats.py",
+                 "kernels/ops.py", "kernels/ref.py"):
+        assert f"src/repro_torch/{want}" in names
+
+
+def test_the_mesh_worker_imports_no_jax():
+    """The spawned ranks of ``tests/test_torch_mesh.py`` import the port
+    only."""
+    test_no_jax_or_reference_import(REPO / "tests" / "_torch_mesh_worker.py")
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -121,7 +121,10 @@ def test_ops_pairwise_stats_takes_plain_version_on_cpu():
     for a, b in zip(ops.pairwise_stats(x), ref.pairwise_stats_ref(x)):
         assert torch.equal(a, b)
     assert ops.launch_counts() == {"pairwise_stats": 0, "fused_select": 0,
-                                   "dequant_stats": 0, "coord_select": 0}
+                                   "dequant_stats": 0, "coord_select": 0,
+                                   "pairwise_stats_rect": 0,
+                                   "dequant_stats_rect": 0,
+                                   "pairwise_sqdist": 0}
 
 
 @pytest.mark.parametrize("n,d,want", [
