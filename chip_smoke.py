@@ -13,7 +13,11 @@ Phases; any failure exits non-zero and no result line is printed:
    1e-5 x max(1, max |plain|) on finite entries, with non-finite entries
    (NaN, inf) at the same places; K2 within 1e-6 x max(1, max |plain|).
    The multi-Bulyan plan built from the kernel's distances must equal the
-   plan built from the plain distances bit for bit.
+   plan built from the plain distances bit for bit.  K2's theta sweep at
+   n = 11: every theta from 1 to 10 with beta in {1, ceil(theta / 2),
+   theta}, on one-hot / uniform synthetic plans with ties, over the same
+   widths, bit for bit its plain version, each launch on the kernel
+   compiled for its theta.
    K5 ``dequant_stats`` on int8 and bf16 payloads at n in {1, 3, 11, 13,
    37, 150} x d in {1, 4095, 100003}, on the embedding leaf, and on
    QSGD and bf16 wires forged by ``scale_poison`` (negative multipliers):
@@ -28,7 +32,8 @@ Phases; any failure exits non-zero and no result line is printed:
    attack, SGD with momentum, seq 128, 2 sequences a worker, 3 steps,
    kernels on.  Every loss must be finite, the byzantine selection mass 0
    at every step, and K1 and K2 must each launch once per gradient leaf
-   per step, K5 and K3 never;
+   per step, K5 and K3 never, every K2 launch on the kernel compiled for
+   theta = 5 (as in phases 5, 6 and 10);
 5. wire training A: the same configuration with ``--codec qsgd:bits=8
    --attack scale_poison``: finite losses, byzantine mass 0 at each step,
    the printed wire line at one byte a coordinate plus 4 a leaf, and K5
@@ -64,7 +69,9 @@ Phases; any failure exits non-zero and no result line is printed:
    and bf16 payloads beside decode + K1, each payload also checked as in
    phase 3; K3 at theta = 5 on the products of the synthetic stack and
    its plan (checked bit for bit), its plain version, the two products
-   and the whole two-step apply beside K2;
+   and the whole two-step apply beside K2; K2 over the timed leaves for
+   every (theta, beta) of the sweep of phase 3, each leaf bit for bit its
+   plain version;
 12. profile: one more steady-state step of the uncompressed configuration
    and one of wire A under ``torch.profiler``: device-busy share and the
    kernels that take the most device time; and (in phase 11) one
@@ -130,6 +137,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 N, F = 11, 2
+#: the main path's theta (n - 2f - 2): K2's variant compiled for it
+THETA_MAIN = N - 2 * F - 2
+#: K2's theta sweep at n = N: every theta a plan at n can have, beta in
+#: {1, ceil(theta / 2), theta}
+K2_SWEEP = tuple((t, b) for t in range(1, N)
+                 for b in sorted({1, -(-t // 2), t}))
 CHECK_WIDTHS = (1, 4095, 100_003, 1_000_000)
 EMBED_WIDTH = 151936 * 1536           # qwen2-1.5b's tied embedding leaf
 K1_TOL, K2_TOL = 1e-5, 1e-6
@@ -230,6 +243,38 @@ def plan_of(raw):
     return api.get_aggregator("multi_bulyan").plan(stats)
 
 
+def synthetic_plan(torch, theta, n, seed):
+    """(theta, n) weights on the card as a multi-Bulyan plan shapes them:
+    w_ext one-hot (rows drawn with repeats, so extracted values tie),
+    w_agr uniform 1/m over m drawn rows (every third slot repeats the one
+    before, so distances tie)."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    w_ext = torch.zeros((theta, n))
+    w_ext[torch.arange(theta), torch.randint(0, n, (theta,),
+                                             generator=gen)] = 1.0
+    w_agr = torch.zeros((theta, n))
+    for t in range(theta):
+        if t % 3 == 2:
+            w_agr[t] = w_agr[t - 1]
+            continue
+        m = int(torch.randint(1, n + 1, (1,), generator=gen))
+        rows = torch.randperm(n, generator=gen)[:m]
+        w_agr[t, rows] = torch.tensor(1.0) / torch.tensor(float(m))
+    return w_ext.cuda(), w_agr.cuda()
+
+
+def k2_variant_check(label, launches):
+    """Every K2 launch counted since the last reset took the kernel compiled
+    for THETA_MAIN."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_select import variant_name
+    got = ops.fused_select_variant_counts()
+    want = {variant_name(THETA_MAIN): launches} if launches else {}
+    check(got == want, f"{label}: K2 variants {got}, want {want}")
+    return got
+
+
 def compare_k1(torch, got, want):
     """(max abs err, max rel err) over finite entries; non-finite entries
     must sit at the same places."""
@@ -290,8 +335,36 @@ def kernels_vs_plain(torch):
         worst["fused_select"] = max(worst["fused_select"], e_2)
         del x, raw_k, sq_k, raw_p, sq_p, out_k, out_p
         torch.cuda.empty_cache()
+    k2_theta_sweep(torch)
     ops.reset_launch_counts()
     return worst
+
+
+def k2_theta_sweep(torch):
+    """K2 at n = N for every (theta, beta) of K2_SWEEP on synthetic plans
+    (:func:`synthetic_plan`) over CHECK_WIDTHS: bit for bit its plain
+    version, each launch counted under the variant compiled for its
+    theta."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_select import fused_select_cuda, \
+        variant_name
+    for theta, beta in K2_SWEEP:
+        we, wa = synthetic_plan(torch, theta, N, seed=theta * 10 + beta)
+        ops.reset_launch_counts()
+        for d in CHECK_WIDTHS:
+            x = rows_stack(torch, d, seed=theta + d)
+            got = fused_select_cuda(x, we, wa, beta)
+            want = ref.fused_select_ref(x, we, wa, beta)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K2 sweep theta={theta} "
+                  f"beta={beta} d={d}: differs from its plain version (max "
+                  f"abs {float(torch.max(torch.abs(got - want))):.3e})")
+        variants = ops.fused_select_variant_counts()
+        check(variants == {variant_name(theta): len(CHECK_WIDTHS)},
+              f"K2 sweep theta={theta}: variants {variants}")
+    log(f"K2 theta sweep at n={N}: {len(K2_SWEEP)} (theta, beta) x d in "
+        f"{list(CHECK_WIDTHS)} bit for bit equal to the plain version, each "
+        f"on the kernel compiled for its theta")
 
 
 def largest_f(n):
@@ -663,11 +736,13 @@ def transform_training(torch):
             "fused_select": leaves * TRANSFORM_STEPS, "dequant_stats": 0,
             "coord_select": 0, **NO_MESH_KERNELS}
     check(counts == want, f"transforms: launches {counts}, want {want}")
+    variants = k2_variant_check("transforms", counts["fused_select"])
     check(state.tstates[1] is None, "transforms: nn_mix grew a state")
     log(f"transforms (worker_momentum 0.9, nn_mix 3; inf): losses "
         f"{[round(v, 4) for v in losses]}, byz_mass {byz} (logged, not "
         f"gated), launches {counts} = {leaves} leaves x {TRANSFORM_STEPS} "
-        f"steps; step seconds {[round(v, 4) for v in secs]}; peak memory "
+        f"steps, K2 variants {variants}; step seconds "
+        f"{[round(v, 4) for v in secs]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params, state, m
     torch.cuda.empty_cache()
@@ -1098,11 +1173,13 @@ def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True):
             for name, k in want_per_leaf_step.items()}
     check(counts == want, f"{label}: launches {counts}, want {want} "
           f"({len(shapes)} leaves x {steps} steps)")
+    variants = k2_variant_check(label, counts["fused_select"])
     step_s = [rec["seconds"] for rec in history]
     log(f"{label}: {steps} steps, losses "
         f"{[round(r['loss'], 4) for r in history]}, byz_mass "
         f"{[r['byz_mass'] for r in history]}, launches {counts} = "
-        f"{len(shapes)} leaves x {steps} steps; step seconds "
+        f"{len(shapes)} leaves x {steps} steps, K2 variants {variants}; step "
+        f"seconds "
         f"{[round(s, 4) for s in step_s]} (first includes warm-up); wall "
         f"{wall:.1f}s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1141,6 +1218,34 @@ def wire_training(torch):
           f"wire B: error-feedback residual max |r| per step {res}")
     log(f"wire B: residual max |r| per step {res} (finite, non-zero)")
     return counts, [rec["seconds"] for rec in history]
+
+
+def network_exchanges(slots):
+    """Compare-exchanges of select_tile.cuh's Batcher odd-even merge sort
+    on `slots` slots (its Network<N>::size())."""
+    c, p = 0, 1
+    while p < slots:
+        k = p
+        while k >= 1:
+            for j in range(k % p, slots - k, 2 * k):
+                c += sum((i + j) // (2 * p) == (i + j + k) // (2 * p)
+                         for i in range(min(k, slots - j - k)))
+            k //= 2
+        p *= 2
+    return c
+
+
+def select_phase_ops(theta, beta):
+    """fp32 operations of one coordinate's phase as select_tile.cuh runs it
+    for K2 and K3: the median's network on the kernel's slots (theta, or 32
+    above 16), two operations an exchange, and the midpoint for an even
+    theta; theta differences and abs values; the threshold (theta - 1 mins
+    for beta = 1, the network again otherwise); a compare below and a
+    compare at it a slot, beta adds and the division."""
+    net = 2 * network_exchanges(theta if theta <= 16 else 32)
+    threshold = theta - 1 if beta == 1 else net
+    return net + (0 if theta & 1 else 2) + 2 * theta + threshold \
+        + 2 * theta + beta + 1
 
 
 def time_ms(torch, fn, reps):
@@ -1192,13 +1297,15 @@ def timing(torch, shapes, worst_k5):
         tot["k2_plain"] += time_ms(torch, lambda: ref.fused_select_ref(
             x, plan.w_ext, plan.w_agr, plan.beta), min(reps, 3))
         # each input read once, each output written once; fp32 operations
-        # outside the tensor cores (the gram's upper triangle for K1, the
-        # two (theta, n) contractions for K2)
+        # outside the tensor cores (the gram's upper triangle for K1; for
+        # K2 the two (theta, n) contractions, a multiply and an add each,
+        # and the coordinate phase, select_phase_ops)
         bound["k1"]["bytes"] += 4 * (N * m + N * N + N) / HBM_BYTES_PER_S
         bound["k1"]["operations"] += N * (N + 1) * m / FP32_FLOP_PER_S
         bound["k2"]["bytes"] += 4 * (N * m + m + 2 * theta * N) \
             / HBM_BYTES_PER_S
-        bound["k2"]["operations"] += 4 * theta * N * m / FP32_FLOP_PER_S
+        bound["k2"]["operations"] += (4 * theta * N + select_phase_ops(
+            theta, beta)) * m / FP32_FLOP_PER_S
         # the two-step apply at theta = 5: the two products, K3 on what
         # they formed (checked against its plain version), and the whole
         # substrate as _bulyan_leaf runs it
@@ -1216,18 +1323,18 @@ def timing(torch, shapes, worst_k5):
         tot["two_step"] += time_ms(torch, lambda: api._bulyan_leaf(
             we, wa, beta, x, use_kernels=True, fused=False), reps)
         # K3: 2 theta values read and one written a coordinate; fp32
-        # operations: the two rank counts (theta^2 compares each), theta
-        # differences and abs values, beta adds, the midpoint and the
-        # division.  The products: the stack and a weight matrix read, theta
-        # rows written, 2 theta n flops a coordinate, each of the two.
+        # operations: the coordinate phase.  The products: the stack and a
+        # weight matrix read, theta rows written, 2 theta n flops a
+        # coordinate, each of the two.
         bound["k3"]["bytes"] += 4 * (2 * theta * m + m) / HBM_BYTES_PER_S
-        bound["k3"]["operations"] += (2 * theta * theta + 2 * theta + beta
-                                      + 2) * m / FP32_FLOP_PER_S
+        bound["k3"]["operations"] += select_phase_ops(theta, beta) * m \
+            / FP32_FLOP_PER_S
         bound["matmuls"]["bytes"] += 2 * 4 * (N * m + theta * N
                                               + theta * m) / HBM_BYTES_PER_S
         bound["matmuls"]["operations"] += 2 * 2 * theta * N * m \
             / FP32_FLOP_PER_S
     profile_two_step(torch, leaves, plan)
+    tot["k2_sweep"] = k2_sweep_timing(torch, leaves)
     del leaves
     torch.cuda.empty_cache()
     # K5 on the same leaf shapes, int8 then bf16 payloads (one type on the
@@ -1265,6 +1372,31 @@ def timing(torch, shapes, worst_k5):
         f"x {N} workers), ms per step: " + ", ".join(
             f"{k} {v}" for k, v in tot.items()))
     return tot
+
+
+def k2_sweep_timing(torch, leaves):
+    """K2 per step over the timed leaves for every (theta, beta) of K2_SWEEP
+    on its synthetic plan, each leaf held bit for bit to the plain version;
+    {"theta=t beta=b": ms}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    out = {}
+    for theta, beta in K2_SWEEP:
+        we, wa = synthetic_plan(torch, theta, N, seed=theta * 10 + beta)
+        ms = 0.0
+        for i, x in enumerate(leaves):
+            m = x.shape[1]
+            check(torch.equal(fused_select_cuda(x, we, wa, beta),
+                              ref.fused_select_ref(x, we, wa, beta)),
+                  f"K2 sweep theta={theta} beta={beta} timed leaf {i} "
+                  f"d={m}: differs from its plain version")
+            ms += time_ms(torch, lambda: fused_select_cuda(x, we, wa, beta),
+                          5 if m > 10_000_000 else 20)
+        out[f"theta={theta} beta={beta}"] = ms
+    log(f"K2 theta sweep at n={N} over the {len(leaves)} timed leaves (each "
+        f"bit for bit its plain version), ms per step: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def mesh_timing(torch, shapes):

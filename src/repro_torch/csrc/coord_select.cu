@@ -11,17 +11,18 @@
 //            lower row.
 //
 // Bound on an H100: bytes.  The kernel must read 2 theta values and write
-// one a coordinate; the rank counts cost O(theta^2) integer compares, well
-// below the card's rate at that byte count.  Design (K2's, without the
-// contraction):
+// one a coordinate; the coordinate phase is a sorting network of a few
+// instructions a value, well below the card's rate at that byte count.
+// Design (K2's, without the contraction):
 //   * one thread per coordinate (grid-stride); a warp reads 32 neighbouring
 //     coordinates of each row, so every load is coalesced along d, and the
 //     2 theta loads of a thread are independent (all in flight at once);
-//   * the theta values of each input stay in registers (TMAX = 8, 16 or 32
-//     unrolled slots, guarded by the runtime theta);
+//   * compiled for the exact theta up to 16, as K2 is; 17 <= theta <= 32
+//     runs over 32 register slots guarded by the runtime theta;
 //   * the coordinate phase is select_tile.cuh's, the one K2 runs after its
-//     contraction: same ranks, same row-order sum, same rounding, so the
-//     plain PyTorch version in kernels/ref.py reproduces it bit for bit;
+//     contraction: same median, same selection, same row-order sum, same
+//     rounding, so the plain PyTorch version in kernels/ref.py reproduces
+//     it bit for bit;
 //   * 64-bit offsets: theta * d exceeds 2^31 on an embedding leaf.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,21 +33,40 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int TMAX>
+// S = theta (exact) or 32 (runtime theta <= 32)
+template <int S>
 __global__ void __launch_bounds__(kThreads)
 coord_select_kernel(const float* __restrict__ g_ext, const float* __restrict__ g_agr,
-                    float* __restrict__ out, int64_t d, int theta, int beta) {
+                    float* __restrict__ out, int64_t d, int theta_arg, int beta) {
+  const int theta = S < 32 ? S : theta_arg;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d; j += stride) {
-    float ext[TMAX];
-    float agr[TMAX];
+    float ext[S];
+    float agr[S];
 #pragma unroll
-    for (int t = 0; t < TMAX; ++t) {
+    for (int t = 0; t < S; ++t) {
       ext[t] = t < theta ? __ldg(g_ext + (int64_t)t * d + j) : 0.0f;
       agr[t] = t < theta ? __ldg(g_agr + (int64_t)t * d + j) : 0.0f;
     }
-    out[j] = select_tile::select_coordinate<TMAX>(ext, agr, theta, beta);
+    out[j] = select_tile::select_coordinate<S>(ext, agr, theta, beta);
   }
+}
+
+using LaunchFn = void (*)(const float*, const float*, float*, int64_t, int, int,
+                          unsigned, cudaStream_t);
+
+template <int S>
+void launch(const float* ge, const float* ga, float* out, int64_t d, int theta,
+            int beta, unsigned blocks, cudaStream_t s) {
+  coord_select_kernel<S><<<blocks, kThreads, 0, s>>>(ge, ga, out, d, theta, beta);
+}
+
+// launch<theta> for 1 <= theta <= 16
+template <int... T>
+LaunchFn exact_launch(int theta, std::integer_sequence<int, T...>) {
+  LaunchFn fn = nullptr;
+  ((fn = theta == T + 1 ? &launch<T + 1> : fn), ...);
+  return fn;
 }
 
 }  // namespace
@@ -66,12 +86,8 @@ extern "C" int coord_select_launch(const void* g_ext, const void* g_agr, void* o
   const float* ga = (const float*)g_agr;
   float* op = (float*)out;
   const int th = (int)theta, be = (int)beta;
-  if (theta <= 8) {
-    coord_select_kernel<8><<<(unsigned)blocks, kThreads, 0, s>>>(ge, ga, op, d, th, be);
-  } else if (theta <= 16) {
-    coord_select_kernel<16><<<(unsigned)blocks, kThreads, 0, s>>>(ge, ga, op, d, th, be);
-  } else {
-    coord_select_kernel<32><<<(unsigned)blocks, kThreads, 0, s>>>(ge, ga, op, d, th, be);
-  }
+  const LaunchFn fn = theta <= 16
+      ? exact_launch(th, std::make_integer_sequence<int, 16>{}) : &launch<32>;
+  fn(ge, ga, op, d, th, be, (unsigned)blocks, s);
   return (int)cudaGetLastError();
 }

@@ -8,21 +8,32 @@
 //   out[j] = mean of the beta agr values nearest med, ties to the lower row.
 //
 // Bound on an H100: bytes.  The kernel must read the stack once and write
-// d floats; the 4*theta*n flops a coordinate costs are ~3x below the fp32
-// rate at that byte count.  Design:
-//   * one thread per coordinate (grid-stride); a warp reads 32 neighbouring
-//     coordinates of each row, so every load is coalesced along d;
-//   * the (theta, n) weight pair is copied into shared memory once per
-//     block, rows padded to a multiple of 4 with zeros, and read as float4
-//     broadcasts (one shared load per four multiply-adds);
-//   * the theta extracted and theta aggregated values stay in registers
-//     (TMAX = 8, 16 or 32 unrolled slots, guarded by the runtime theta);
-//     the median and the beta-selection are rank counts over them
-//     (select_tile.cuh, shared with K3), so no (theta, d) intermediate is
-//     ever written to device memory;
-//   * products and sums are rounded one operation at a time (__fmul_rn,
-//     __fadd_rn: no fused multiply-add), in row order, so the plain PyTorch
-//     version in kernels/ref.py reproduces the output bit for bit;
+// d floats.  What stands between it and that bound is instruction issue:
+// each of the theta x n products and sums of a contraction is its own
+// instruction (no fused multiply-add, so that the plain version matches
+// bit for bit), 4 theta n of them a coordinate, 220 at the main path's
+// n = 11, theta = 5.  Design:
+//   * compiled for the exact theta (1 <= theta <= 16, one instantiation
+//     each): the theta extracted and theta aggregated values of a
+//     coordinate sit in registers with no guarded slots, and the
+//     coordinate phase (select_tile.cuh, shared with K3) is a sorting
+//     network the compiler prunes to the median's exchanges;
+//   * C = 2 coordinates a thread (one above theta = 16), j, j + 32,
+//     ... within a warp's tile of 32 C columns, so every load is a
+//     coalesced 128-byte row segment that needs no alignment of the row
+//     (rows start at i d floats; d may be odd), and one broadcast of a
+//     (w_ext, w_agr) weight pair from shared memory serves all of a
+//     thread's coordinates;
+//   * the rows stream kRows = 8 at a time: their loads are issued together
+//     (one row pointer, advanced by d; no guard but in a warp's last,
+//     partial tile), then each row is contracted in row order, every
+//     product and sum rounded on its own (__fmul_rn, __fadd_rn), so the
+//     plain PyTorch version in kernels/ref.py reproduces the output bit for
+//     bit.  No row is skipped for a zero weight: 0 x inf is NaN here, in
+//     the plain version and in JAX;
+//   * 17 <= theta <= 32 keeps one coordinate a thread over 32 register
+//     slots guarded by the runtime theta (the same phase on NaN-padded
+//     slots);
 //   * 64-bit offsets: an embedding leaf stack holds > 2^31 values.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,91 +44,185 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int TMAX>
+// Coordinates a thread of the exact kernels (theta <= 16; one above) and
+// rows whose loads are in flight together: the fastest pair on the main
+// path of 1, 2, 4 coordinates x 4, 8 rows (PERF.md, K2).
+constexpr int kCoords = 2, kRows = 8;
+
+template <int THETA>
+constexpr int coords_per_thread() {
+  return THETA <= 16 ? kCoords : 1;
+}
+
+// The weights in shared memory, one (w_ext, w_agr) pair per (row, slot):
+// sw[i * theta + t].
+__device__ __forceinline__ void stage_weights(const float* __restrict__ w_ext,
+                                              const float* __restrict__ w_agr,
+                                              float2* sw, int n, int theta) {
+  for (int k = threadIdx.x; k < theta * n; k += blockDim.x) {
+    const int i = k / theta, t = k % theta;
+    sw[k] = make_float2(w_ext[(int64_t)t * n + i], w_agr[(int64_t)t * n + i]);
+  }
+  __syncthreads();
+}
+
+// Slots [0, S) of `theta` slots (S = theta, or 32 with the runtime theta).
+template <int S, int C>
+__device__ __forceinline__ void contract_row(const float2* __restrict__ w,
+                                             const float (&v)[C],
+                                             float (&ext)[C][S],
+                                             float (&agr)[C][S], int theta) {
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    if (t < theta) {
+      const float2 we = w[t];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        ext[c][t] = __fadd_rn(ext[c][t], __fmul_rn(we.x, v[c]));
+        agr[c][t] = __fadd_rn(agr[c][t], __fmul_rn(we.y, v[c]));
+      }
+    }
+  }
+}
+
+// One warp tile, columns [j0 - lane, j0 - lane + 32 C): this thread's
+// coordinates j0 + 32 c, c < C.  kFull: all of them lie below d, so no load
+// needs a guard and each row's C loads share one address (immediate
+// offsets).  The rows stream kRows at a time, the last n mod kRows after.
+template <int S, int C, bool kFull>
+__device__ __forceinline__ void columns(const float* __restrict__ x,
+                                        const float2* __restrict__ sw,
+                                        float* __restrict__ out, int n,
+                                        int64_t d, int64_t j0, int theta,
+                                        int beta) {
+  bool in[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) in[c] = kFull || j0 + 32 * c < d;
+  float ext[C][S], agr[C][S];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      ext[c][t] = 0.0f;
+      agr[c][t] = 0.0f;
+    }
+  }
+  const float* row = x + j0;  // row i, advanced by d a row
+  int i = 0;
+  for (; i + kRows <= n; i += kRows) {
+    float v[kRows][C];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r, row += d) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[r][c] = in[c] ? __ldg(row + 32 * c) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      contract_row<S, C>(sw + (i + r) * theta, v[r], ext, agr, theta);
+    }
+  }
+  if (i < n) {
+    float v[kRows - 1][C];
+#pragma unroll
+    for (int r = 0; r < kRows - 1; ++r, row += d) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        v[r][c] = i + r < n && in[c] ? __ldg(row + 32 * c) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows - 1; ++r) {
+      if (i + r < n) {
+        contract_row<S, C>(sw + (i + r) * theta, v[r], ext, agr, theta);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (in[c]) {
+      out[j0 + 32 * c] =
+          select_tile::select_coordinate<S>(ext[c], agr[c], theta, beta);
+    }
+  }
+}
+
+// S = THETA (exact) or 32 (runtime theta <= 32); C coordinates a thread.
+template <int S, int C>
 __global__ void __launch_bounds__(kThreads)
 fused_select_kernel(const float* __restrict__ x, const float* __restrict__ w_ext,
                     const float* __restrict__ w_agr, float* __restrict__ out,
-                    int64_t n, int64_t d, int theta, int beta) {
-  extern __shared__ float4 sw4[];
-  const int nv = (int)((n + 3) / 4);  // float4s per weight row
-  float* sw = reinterpret_cast<float*>(sw4);
-  for (int k = threadIdx.x; k < theta * nv * 4; k += blockDim.x) {
-    const int t = k / (nv * 4);
-    const int i = k % (nv * 4);
-    sw[k] = i < n ? w_ext[(int64_t)t * n + i] : 0.0f;
-    sw[theta * nv * 4 + k] = i < n ? w_agr[(int64_t)t * n + i] : 0.0f;
-  }
-  __syncthreads();
-  const float4* we4 = sw4;
-  const float4* wa4 = sw4 + theta * nv;
+                    int n, int64_t d, int theta_arg, int beta) {
+  // the exact kernels fold theta into every guard and index
+  const int theta = S < 32 ? S : theta_arg;
+  extern __shared__ float2 sw[];
+  stage_weights(w_ext, w_agr, sw, n, theta);
 
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d; j += stride) {
-    float ext[TMAX];
-    float agr[TMAX];
-#pragma unroll
-    for (int t = 0; t < TMAX; ++t) {
-      ext[t] = 0.0f;
-      agr[t] = 0.0f;
+  constexpr int64_t kTile = 32 * C;  // a warp's columns
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t j0 = warp * kTile + lane; j0 - lane < d; j0 += warps * kTile) {
+    if (j0 - lane + kTile <= d) {
+      columns<S, C, true>(x, sw, out, n, d, j0, theta, beta);
+    } else {
+      columns<S, C, false>(x, sw, out, n, d, j0, theta, beta);
     }
-    for (int q = 0; q < nv; ++q) {
-      const int64_t i = 4 * (int64_t)q;
-      // padded rows add (+0 * 0) = +0, which leaves a sum that never
-      // holds -0 unchanged
-      const float v0 = x[i * d + j];
-      const float v1 = i + 1 < n ? x[(i + 1) * d + j] : 0.0f;
-      const float v2 = i + 2 < n ? x[(i + 2) * d + j] : 0.0f;
-      const float v3 = i + 3 < n ? x[(i + 3) * d + j] : 0.0f;
-#pragma unroll
-      for (int t = 0; t < TMAX; ++t) {
-        if (t < theta) {
-          const float4 we = we4[t * nv + q];
-          const float4 wa = wa4[t * nv + q];
-          float e = ext[t], a = agr[t];
-          e = __fadd_rn(e, __fmul_rn(we.x, v0));
-          a = __fadd_rn(a, __fmul_rn(wa.x, v0));
-          e = __fadd_rn(e, __fmul_rn(we.y, v1));
-          a = __fadd_rn(a, __fmul_rn(wa.y, v1));
-          e = __fadd_rn(e, __fmul_rn(we.z, v2));
-          a = __fadd_rn(a, __fmul_rn(wa.z, v2));
-          e = __fadd_rn(e, __fmul_rn(we.w, v3));
-          a = __fadd_rn(a, __fmul_rn(wa.w, v3));
-          ext[t] = e;
-          agr[t] = a;
-        }
-      }
-    }
-
-    out[j] = select_tile::select_coordinate<TMAX>(ext, agr, theta, beta);
   }
+}
+
+template <int S, int C>
+int launch(const float* x, const float* we, const float* wa, float* out, int n,
+           int64_t d, int theta, int beta, int64_t max_blocks, cudaStream_t s) {
+  const int64_t tiles = (d + 32 * C - 1) / (32 * C);
+  const int64_t want = (tiles + kThreads / 32 - 1) / (kThreads / 32);
+  const unsigned blocks = (unsigned)(want < max_blocks ? want : max_blocks);
+  const size_t smem = (size_t)theta * n * sizeof(float2);
+  fused_select_kernel<S, C><<<blocks, kThreads, smem, s>>>(x, we, wa, out, n, d,
+                                                           theta, beta);
+  return (int)cudaGetLastError();
+}
+
+using LaunchFn = int (*)(const float*, const float*, const float*, float*, int,
+                         int64_t, int, int, int64_t, cudaStream_t);
+
+// launch<theta, ...> for 1 <= theta <= 16
+template <int... T>
+LaunchFn exact_launch(int theta, std::integer_sequence<int, T...>) {
+  LaunchFn fn = nullptr;
+  ((fn = theta == T + 1 ? &launch<T + 1, coords_per_thread<T + 1>()> : fn), ...);
+  return fn;
 }
 
 }  // namespace
 
 // x: (n, d) fp32 row-major; w_ext, w_agr: (theta, n) fp32; out: (d,) fp32.
-// blocks: grid size (the wrapper's choice); 1 <= beta <= theta <= 32.
+// max_blocks caps the grid (a grid-stride loop covers the rest);
+// 1 <= beta <= theta <= 32.  *variant is set to the kernel taken: theta
+// for the exact kernels (theta <= 16), 32 for the runtime-theta one.
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int fused_select_launch(const void* x, const void* w_ext, const void* w_agr,
-                                   void* out, int64_t n, int64_t d, int64_t theta,
-                                   int64_t beta, int64_t blocks, void* stream) {
-  if (n <= 0 || d <= 0 || theta < 1 || theta > 32 || beta < 1 || beta > theta ||
-      blocks <= 0 || blocks > 0x7fffffff) {
+extern "C" int fused_select_launch(const void* x, const void* w_ext,
+                                   const void* w_agr, void* out, int64_t n,
+                                   int64_t d, int64_t theta, int64_t beta,
+                                   int64_t max_blocks, void* stream,
+                                   int32_t* variant) {
+  *variant = 0;
+  if (n <= 0 || n > 0x7fffffff || d <= 0 || theta < 1 || theta > 32 ||
+      beta < 1 || beta > theta || max_blocks <= 0 || max_blocks > 0x7fffffff ||
+      (size_t)theta * n * sizeof(float2) > 48 * 1024) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = 2 * (size_t)theta * (size_t)((n + 3) / 4) * sizeof(float4);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* xp = (const float*)x;
   const float* we = (const float*)w_ext;
   const float* wa = (const float*)w_agr;
   float* op = (float*)out;
-  const int th = (int)theta, be = (int)beta;
-  if (theta <= 8) {
-    fused_select_kernel<8><<<(unsigned)blocks, kThreads, smem, s>>>(xp, we, wa, op, n, d, th, be);
-  } else if (theta <= 16) {
-    fused_select_kernel<16><<<(unsigned)blocks, kThreads, smem, s>>>(xp, we, wa, op, n, d, th, be);
-  } else {
-    fused_select_kernel<32><<<(unsigned)blocks, kThreads, smem, s>>>(xp, we, wa, op, n, d, th, be);
+  const int nn = (int)n, th = (int)theta, be = (int)beta;
+  if (theta <= 16) {
+    *variant = th;
+    return exact_launch(th, std::make_integer_sequence<int, 16>{})(
+        xp, we, wa, op, nn, d, th, be, max_blocks, s);
   }
-  return (int)cudaGetLastError();
+  *variant = 32;
+  return launch<32, coords_per_thread<32>()>(xp, we, wa, op, nn, d, th, be,
+                                             max_blocks, s);
 }

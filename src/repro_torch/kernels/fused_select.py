@@ -5,6 +5,11 @@ fp32 stack + (θ, n) plan weights ``w_ext``/``w_agr`` + β -> (d,) aggregate,
 with no (θ, d) intermediate in device memory.  The kernel's header says
 what bounds it and how its design meets that; its plain version is
 ``kernels/ref.py::fused_select_ref``, which it matches bit for bit.
+
+A θ ≤ ``MAX_EXACT_THETA`` takes a kernel compiled for that θ, a larger one
+the kernel over ``MAX_THETA`` slots guarded by the runtime θ; a θ above
+``MAX_THETA`` raises.  ``fused_select_cuda.variant_launches`` counts the
+launches of each (``"theta=5"``, ``"theta<=32"``) beside ``launches``.
 """
 from __future__ import annotations
 
@@ -17,18 +22,26 @@ from repro_torch.kernels import build
 
 #: largest θ the kernel's unrolled register slots hold
 MAX_THETA = 32
-#: grid cap (132 SMs x 16 on an H100); a grid-stride loop covers the rest
+#: largest θ with a kernel compiled for it
+MAX_EXACT_THETA = 16
+#: grid cap (132 SMs x 16 on an H100; 1056 times the same on the main
+#: path); a grid-stride loop covers the rest
 MAX_BLOCKS = 2112
-_THREADS = 256
 
 
 @functools.lru_cache(maxsize=None)
 def _launch_fn():
     fn = build.library("fused_select").fused_select_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
     fn.restype = ctypes.c_int
     return fn
+
+
+def variant_name(theta: int) -> str:
+    """The kernel variant a θ takes (the name its launches count under)."""
+    return f"theta={theta}" if theta <= MAX_EXACT_THETA \
+        else f"theta<={MAX_THETA}"
 
 
 def check_select_args(x: torch.Tensor, w_ext: torch.Tensor,
@@ -69,19 +82,25 @@ def fused_select_cuda(x: torch.Tensor, w_ext: torch.Tensor,
                          f"values in registers, got theta={theta}")
     if d == 0:
         raise ValueError("empty stack")
-    blocks = min(-(-d // _THREADS), MAX_BLOCKS)
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
     fn = _launch_fn()
+    variant = ctypes.c_int32(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_ext.data_ptr(), w_agr.data_ptr(),
-                 out.data_ptr(), n, d, theta, int(beta), blocks, stream)
+                 out.data_ptr(), n, d, theta, int(beta), MAX_BLOCKS, stream,
+                 ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"fused_select kernel launch failed "
                            f"(cudaError {err}) for x {tuple(x.shape)}, "
                            f"theta={theta}, beta={beta}")
+    # the kernel the launcher took: its θ, or MAX_THETA for the guarded one
+    name = variant_name(variant.value)
     fused_select_cuda.launches += 1
+    counts = fused_select_cuda.variant_launches
+    counts[name] = counts.get(name, 0) + 1
     return out
 
 
 fused_select_cuda.launches = 0
+fused_select_cuda.variant_launches = {}

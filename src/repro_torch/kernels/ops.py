@@ -129,8 +129,15 @@ def square_launch_counts() -> Dict[str, int]:
             if hasattr(fn, "square_launches")}
 
 
+def fused_select_variant_counts() -> Dict[str, int]:
+    """Of the K2 launches in :func:`launch_counts`, those of each kernel
+    variant: ``"theta=<θ>"`` (compiled for that θ) or ``"theta<=32"``."""
+    return dict(fused_select_cuda.variant_launches)
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
         if hasattr(fn, "square_launches"):
             fn.square_launches = 0
+    fused_select_cuda.variant_launches.clear()

@@ -141,11 +141,13 @@ def coord_select_ref(g_ext: Tensor, g_agr: Tensor, beta: int, *,
     """(θ, d) extracted and aggregated values -> (d,) coordinate phase.
 
     Per coordinate: the θ-median of ``g_ext`` (midpoint of the middle pair
-    for even θ), the β ``g_agr`` values nearest it by rank counting (ties
-    to the lower index), their sum in row order divided by β — the order
-    of ``csrc/select_tile.cuh``, which K2 and K3 share, so the two agree
-    with this bit for bit.  Cut into ``chunk``-column pieces as
-    :func:`fused_select_ref`.
+    for even θ; ``torch.sort`` orders NaN last), the β ``g_agr`` values
+    nearest it by rank counting (ties to the lower index; a NaN distance
+    ranks 0, so it is always taken), their sum in row order divided by β.
+    ``csrc/select_tile.cuh``, which K2 and K3 share, reaches the same
+    median and the same set by a sorting network and a threshold, and sums
+    in the same order, so the two agree with this bit for bit.  Cut into
+    ``chunk``-column pieces as :func:`fused_select_ref`.
     """
     d = g_ext.shape[1]
     out = torch.empty((d,), dtype=torch.float32, device=g_ext.device)

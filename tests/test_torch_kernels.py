@@ -6,9 +6,13 @@ held to the Pallas kernels run in interpret mode, over the edge grid of
 ``tests/test_kernels.py`` (n not a multiple of 8, d not a multiple of 128,
 even θ, β = θ, d = 1), and K2's plain version to the XLA ``_bulyan_leaf``
 of the JAX package.
-Tolerance: fp32 ``atol=1e-5·scale, rtol=1e-5``.  The tests marked
-``cuda`` hold the CUDA kernels to their plain versions; they need a card
-and ``nvcc`` and skip elsewhere.  K3's plain version is held to the
+Tolerance: fp32 ``atol=1e-5·scale, rtol=1e-5``.  On stacks that hold NaN,
+±inf, ±0 and 1e30 the plain versions are held to the Pallas kernels with
+NaN and ±inf at the same places and the finite values within ``rtol=1e-5,
+atol=1e-5`` each (the two contractions sum in other orders).  The tests
+marked ``cuda`` hold the CUDA kernels to their plain versions, bit for
+bit for K2 and K3 (NaN at the same places); they need a card and ``nvcc``
+and skip elsewhere.  K3's plain version is held to the
 Pallas kernel in ``tests/test_torch_substrates.py``.  JAX is imported only by the tests that
 use it, so on a GPU machine without JAX the card tests run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
@@ -23,6 +27,7 @@ from repro_torch.core import gar as TG
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.coord_select import coord_select_cuda
 from repro_torch.kernels.dequant_stats import dequant_stats_cuda
+from repro_torch.kernels import fused_select as K2
 from repro_torch.kernels.fused_select import MAX_THETA, fused_select_cuda
 from repro_torch.kernels.pairwise_sqdist import (launch_config,
                                                  pairwise_stats_cuda)
@@ -46,10 +51,12 @@ def jx():
     """The JAX package's kernels and apply path (Pallas in interpret mode)."""
     import jax.numpy as jnp
     from repro.core import api
+    from repro.kernels.coord_select import coord_select_pallas
     from repro.kernels.fused_select import fused_select_pallas
     from repro.kernels.pairwise_sqdist import pairwise_stats_pallas
     return types.SimpleNamespace(jnp=jnp, api=api,
                                  fused_select=fused_select_pallas,
+                                 coord_select=coord_select_pallas,
                                  pairwise_stats=pairwise_stats_pallas)
 
 
@@ -196,6 +203,102 @@ def test_ops_fused_select_takes_plain_version_on_cpu():
     assert torch.equal(ops.fused_select(x, _t(w_ext), _t(w_agr), beta),
                        ref.fused_select_ref(x, _t(w_ext), _t(w_agr), beta))
     assert ops.launch_counts()["fused_select"] == 0
+    assert ops.fused_select_variant_counts() == {}
+
+
+# ------------------------------------------------- non-finite K2 and K3
+SPECIALS = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30], np.float32)
+
+
+def _synthetic_plan(theta, n, seed, signed=False):
+    """(θ, n) weights as a multi-Bulyan plan shapes them: ``w_ext`` one-hot
+    (rows drawn with repeats, so extracted values tie), ``w_agr`` uniform
+    1/m over m drawn rows (every third slot repeats the one before, so
+    distances tie).  ``signed``: a dense N(0, 1) ``w_agr`` instead, so an
+    inf row gives +inf and -inf aggregates with no NaN among them."""
+    rng = np.random.default_rng(seed)
+    w_ext = np.zeros((theta, n), np.float32)
+    w_ext[np.arange(theta), rng.integers(0, n, size=theta)] = 1.0
+    if signed:
+        return w_ext, rng.normal(size=(theta, n)).astype(np.float32)
+    w_agr = np.zeros((theta, n), np.float32)
+    for t in range(theta):
+        if t % 3 == 2:
+            w_agr[t] = w_agr[t - 1]
+            continue
+        rows = rng.choice(n, size=int(rng.integers(1, n + 1)), replace=False)
+        w_agr[t, rows] = np.float32(1.0) / np.float32(len(rows))
+    return w_ext, w_agr
+
+
+def _non_finite_stack(n, d, seed):
+    """(n, d) N(0, 1) with special values at chosen places: column j holds
+    SPECIALS[j % 6] in ``j % 4`` rows (rows (3 j + 5 k) mod n), so some
+    columns are clean, some carry one special and some several (NaN in
+    most rows of a column drives the median to NaN)."""
+    x = _x(n, d, seed)
+    for j in range(d):
+        for k in range(j % 4):
+            x[(3 * j + 5 * k) % n, j] = SPECIALS[j % 6]
+    x[:, 6 * (d // 12):6 * (d // 12) + 6] = SPECIALS[None, :]   # whole columns
+    return x
+
+
+def _non_finite_coord(theta, d, seed):
+    """(θ, d) g_ext / g_agr with specials at chosen places; in column j of
+    g_ext, ``j % (θ + 1)`` rows are NaN (from none to every row, past the
+    θ - ⌊θ/2⌋ NaNs that make the median NaN); g_agr as
+    :func:`_non_finite_stack` places them."""
+    ge = _non_finite_stack(theta, d, seed)
+    ge[np.isnan(ge)] = 1.0
+    for j in range(d):
+        ge[np.arange(j % (theta + 1)) * 7 % theta, j] = np.nan
+    ga = _non_finite_stack(theta, d, seed + 1)
+    return ge, ga
+
+
+def _nan_aware_close(got, want):
+    """NaN and ±inf at the same places; finite values within rtol 1e-5,
+    atol 1e-5 each."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(got[inf], want[inf])
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("theta,n,beta", [(1, 3, 1), (2, 7, 1), (3, 9, 2),
+                                          (5, 11, 1), (6, 11, 3),
+                                          (7, 11, 7)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_fused_select_plain_matches_pallas_on_non_finite(jx, theta, n, beta,
+                                                         signed):
+    """NaN, ±inf, ±0 and 1e30 in the stack: the plain version gives NaN and
+    inf where the Pallas kernel does (JAX's sort orders NaN last, as
+    torch.sort does) and the same finite values."""
+    w_ext, w_agr = _synthetic_plan(theta, n, seed=theta, signed=signed)
+    x = _non_finite_stack(n, 240, seed=n)
+    jnp = jx.jnp
+    want = jx.fused_select(jnp.asarray(x), jnp.asarray(w_ext),
+                           jnp.asarray(w_agr), beta, d_tile=128,
+                           interpret=True)
+    got = ref.fused_select_ref(_t(x), _t(w_ext), _t(w_agr), beta)
+    assert np.isnan(np.asarray(want)).any()
+    _nan_aware_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("theta,beta", [(1, 1), (2, 1), (3, 1), (4, 2),
+                                        (5, 1), (8, 3), (7, 7)])
+def test_coord_select_plain_matches_pallas_on_non_finite(jx, theta, beta):
+    """K3's plain version on NaN-laden g_ext (up to every row of a column)
+    and specials in g_agr: NaN and inf where the Pallas kernel has them."""
+    ge, ga = _non_finite_coord(theta, 300, seed=theta)
+    jnp = jx.jnp
+    want = jx.coord_select(jnp.asarray(ge), jnp.asarray(ga), beta,
+                           d_tile=128, interpret=True)
+    got = ref.coord_select_ref(_t(ge), _t(ga), beta)
+    _nan_aware_close(got.numpy(), want)
 
 
 def test_fused_select_rejects_bad_shapes():
@@ -318,3 +421,90 @@ def test_k3_kernel_matches_plain_on_card(card, theta, beta, d, ties):
     assert torch.equal(got, want)
     if beta == theta:
         _close(got.cpu().numpy(), ga.mean(dim=0).cpu().numpy())
+
+
+def _same_bits(got, want):
+    """Bit for bit with NaN at the same places (torch.equal is False on any
+    NaN)."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and \
+        torch.equal(got[~nan], want[~nan])
+
+
+def _sweep(top):
+    """(θ, β) for θ in 1..top, β in {1, ⌈θ/2⌉, θ}."""
+    return [(theta, beta) for theta in range(1, top + 1)
+            for beta in sorted({1, -(-theta // 2), theta})]
+
+
+SWEEP_WIDTHS = (1, 3, 31, 257, 100_003)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,beta,n", [
+    (theta, beta, n) for theta, beta in _sweep(MAX_THETA)
+    for n in sorted({theta + 1, 11, 37, 150}) if n > theta])
+def test_k2_theta_sweep_matches_plain_on_card(card, theta, beta, n):
+    """Every θ of both kernels (compiled for θ up to 16, guarded slots
+    above), n from θ + 1 to 150, one-hot / uniform weights with ties, at
+    odd widths: bit for bit the plain version, and counted under the
+    variant θ takes."""
+    w_ext, w_agr = _synthetic_plan(theta, n, seed=theta * 100 + n)
+    we, wa = _t(w_ext).to(card), _t(w_agr).to(card)
+    for d in SWEEP_WIDTHS:
+        x = _t(_x(n, d, seed=theta + n + d)).to(card)
+        name = K2.variant_name(theta)
+        before = fused_select_cuda.variant_launches.get(name, 0)
+        got = fused_select_cuda(x, we, wa, beta)
+        want = ref.fused_select_ref(x, we, wa, beta)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"d={d}"
+        assert fused_select_cuda.variant_launches[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,beta", _sweep(MAX_THETA))
+@pytest.mark.parametrize("ties", [False, True])
+def test_k3_theta_sweep_matches_plain_on_card(card, theta, beta, ties):
+    for d in SWEEP_WIDTHS:
+        ge, ga = (t.to(card) for t in _coord_inputs(theta, d, theta + d,
+                                                      ties))
+        got = coord_select_cuda(ge, ga, beta)
+        want = ref.coord_select_ref(ge, ga, beta)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"d={d}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,n,beta", [(1, 3, 1), (2, 7, 1), (3, 9, 2),
+                                          (5, 11, 1), (6, 11, 3), (7, 11, 7),
+                                          (16, 37, 4), (20, 37, 10)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_k2_non_finite_matches_plain_on_card(card, theta, n, beta, signed):
+    """NaN, ±inf, ±0 and 1e30 in the stack (signed: aggregates of both
+    infinite signs under a median driven to NaN): bit for bit the plain
+    version, NaN at the same places."""
+    w_ext, w_agr = _synthetic_plan(theta, n, seed=theta, signed=signed)
+    we, wa = _t(w_ext).to(card), _t(w_agr).to(card)
+    for d in (257, 4099):
+        x = _t(_non_finite_stack(n, d, seed=n + d)).to(card)
+        got = fused_select_cuda(x, we, wa, beta)
+        want = ref.fused_select_ref(x, we, wa, beta)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), f"d={d}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,beta", [(1, 1), (2, 1), (3, 1), (4, 2),
+                                        (5, 1), (8, 3), (7, 7), (16, 4),
+                                        (30, 10)])
+def test_k3_non_finite_matches_plain_on_card(card, theta, beta):
+    """NaN in up to every row of a g_ext column, specials in g_agr: bit for
+    bit the plain version, NaN at the same places."""
+    for d in (300, 4099):
+        ge, ga = (_t(a).to(card) for a in _non_finite_coord(theta, d,
+                                                             seed=theta + d))
+        got = coord_select_cuda(ge, ga, beta)
+        want = ref.coord_select_ref(ge, ga, beta)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), f"d={d}"

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1 (``pairwise_stats``) or K2 (``fused_select``) of several
-checkouts of the port on one card.
+"""Time K1 (``pairwise_stats``), K2 (``fused_select``) or K3
+(``coord_select``) of several checkouts of the port on one card.
 
-    python3 tools/time_k1.py SRC_A SRC_B [--kernel k1|k2] [--order ABBA]
-                             [--reps 5]
+    python3 tools/time_k1.py SRC_A SRC_B [--kernel k1|k2|k3] [--order ABBA]
+                             [--reps 5] [--n 11] [--f 2]
 
 Each ``SRC`` is the ``src`` directory of a checkout of this repository
 (for example a ``git archive`` of an earlier commit unpacked beside this
@@ -11,10 +11,14 @@ one).  The checkouts run one after another in ``--order`` (letters index
 the ``SRC`` arguments), each in a child process of its own, so that two
 versions of the package never share an interpreter.  A child builds the
 checkout's kernels, then times the kernel's wrapper on each gradient leaf
-of qwen2-1.5b cut to 2 layers at n = 11 (the leaves of ``chip_smoke.py``'s
-training phase, filled as there; K2 with the multi-Bulyan plan of their
-K1 distances, f = 2) and sums the median ms of each leaf: the same
-per-step number as ``chip_smoke.py``'s ``ms`` for that kernel.  It also
+of qwen2-1.5b cut to 2 layers, stacked ``--n`` rows deep (the leaves of
+``chip_smoke.py``'s training phase at n = 11, filled as there, one leaf
+on the card at a time) and sums the median ms of each leaf: the same
+per-step number as ``chip_smoke.py``'s ``ms`` for that kernel.  K2 takes
+the multi-Bulyan plan of the leaves' K1 distances at ``--f`` (theta =
+n - 2f - 2, beta = theta - 2f); K3 takes that plan's theta and beta on
+(theta, d) ``g_ext``/``g_agr`` filled with the leaf's noise (one product
+of the stack would not fit beside the stack at theta = 32).  It also
 prints a hash of the kernel's outputs over every leaf, so that two
 versions that should agree bit for bit can be seen to.
 
@@ -34,7 +38,18 @@ import sys
 N, F = 11, 2
 
 
-def child(src, kernel, reps):
+def fill(torch, rows, m, seed):
+    """chip_smoke.py's rows_stack: row i is N(0, (1 + 0.1 i)^2) noise."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.empty((rows, m), dtype=torch.float32, device="cuda")
+    x.normal_(generator=gen)
+    x.mul_(1.0 + 0.1 * torch.arange(rows, dtype=torch.float32,
+                                    device="cuda")[:, None])
+    return x
+
+
+def child(src, kernel, reps, n, f):
     sys.path.insert(0, src)
     import dataclasses
 
@@ -49,63 +64,73 @@ def child(src, kernel, reps):
     from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build(("pairwise_stats", "fused_select"))
+    names = ("pairwise_stats", "fused_select")
+    if kernel == "k3":
+        from repro_torch.kernels.coord_select import coord_select_cuda
+        names += ("coord_select",)
+    build.build(names)
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
     params = MD.init_model(cfg, seed=0, device="cuda")
     numels = [math.prod(p.shape) for p in tree_leaves(params)]
     del params
     torch.cuda.empty_cache()
-    leaves = []
-    raw = torch.zeros((N, N), dtype=torch.float32, device="cuda")
+    raw = torch.zeros((n, n), dtype=torch.float32, device="cuda")
     for i, m in enumerate(numels):
-        # chip_smoke.py's rows_stack: row i is N(0, (1 + 0.1 i)^2) noise
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(i)
-        x = torch.empty((N, m), dtype=torch.float32, device="cuda")
-        x.normal_(generator=gen)
-        x.mul_(1.0 + 0.1 * torch.arange(N, dtype=torch.float32,
-                                        device="cuda")[:, None])
-        leaves.append(x)
-        raw = raw + pairwise_stats_cuda(x)[0]
+        raw = raw + pairwise_stats_cuda(fill(torch, n, m, i))[0]
     plan = api.get_aggregator("multi_bulyan").plan(
-        api.AggStats(n=N, f=F, dists=api.finalize_dists(raw)))
+        api.AggStats(n=n, f=f, dists=api.finalize_dists(raw)))
+    theta = plan.w_ext.shape[0]
+
+    def inputs(i, m):
+        if kernel != "k3":
+            return (fill(torch, n, m, i),)
+        g = fill(torch, 2 * theta, m, i)
+        return g[:theta], g[theta:]
+
     if kernel == "k1":
         def fn(x):
             return pairwise_stats_cuda(x)
-    else:
+    elif kernel == "k2":
         def fn(x):
             return (fused_select_cuda(x, plan.w_ext, plan.w_agr, plan.beta),)
+    else:
+        def fn(ge, ga):
+            return (coord_select_cuda(ge, ga, plan.beta),)
     digest = hashlib.sha256()
     total = 0.0
-    for x in leaves:
-        m = x.shape[1]
-        for out in fn(x):
+    for i, m in enumerate(numels):
+        args = inputs(i, m)
+        for out in fn(*args):
             digest.update(out.cpu().numpy().tobytes())
         times = []
         for _ in range(reps if m > 10_000_000 else 4 * reps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn(x)
+            fn(*args)
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
         total += statistics.median(times)
+        del args
     print(json.dumps({"src": src, "kernel": kernel, "ms": total,
-                      "leaves": len(numels),
-                      "sha256": digest.hexdigest()}), flush=True)
+                      "leaves": len(numels), "n": n, "theta": theta,
+                      "beta": plan.beta, "sha256": digest.hexdigest()}),
+          flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("srcs", nargs="+")
-    ap.add_argument("--kernel", choices=("k1", "k2"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), default="k1")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--n", type=int, default=N)
+    ap.add_argument("--f", type=int, default=F)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.srcs[0], args.kernel, args.reps)
+        child(args.srcs[0], args.kernel, args.reps, args.n, args.f)
         return 0
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -116,7 +141,8 @@ def main():
         src = os.path.abspath(args.srcs[ord(letter) - ord("A")])
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--child", "--kernel", args.kernel, "--reps",
-                              str(args.reps), src],
+                              str(args.reps), "--n", str(args.n), "--f",
+                              str(args.f), src],
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, flush=True)
@@ -128,7 +154,8 @@ def main():
     per = {}
     for run in runs:
         per.setdefault(run["label"], []).append(run["ms"])
-    print(json.dumps({"runs": runs, "kernel": args.kernel, "median_ms": {
+    print(json.dumps({"runs": runs, "kernel": args.kernel, "n": args.n,
+                      "f": args.f, "median_ms": {
         k: statistics.median(v) for k, v in per.items()},
         "same_outputs": len({r["sha256"] for r in runs}) == 1}), flush=True)
     return 0
