@@ -19,8 +19,11 @@ Phases; any failure exits non-zero and no result line is printed:
    widths, bit for bit its plain version, each launch on the kernel
    compiled for its theta.
    K5 ``dequant_stats`` on int8 and bf16 payloads at n in {1, 3, 11, 13,
-   37, 150} x d in {1, 4095, 100003}, on the embedding leaf, and on
-   QSGD and bf16 wires forged by ``scale_poison`` (negative multipliers):
+   37, 150} x d in {1, 4095, 100003, 4096, 100004, 2^20} (odd widths load
+   element by element, multiples of 4 in packed words), on a payload one
+   element into a larger buffer (not 4-byte aligned), on the embedding
+   leaf, and on QSGD and bf16 wires forged by ``scale_poison`` (negative
+   multipliers):
    within K1's tolerance of its plain version (distances against
    max(1, max |plain|, 2 max norm): a raw distance is formed as
    sq_i + sq_j - 2 g_ij), equal bit for bit to K1 on the decoded stack,
@@ -149,7 +152,8 @@ K1_TOL, K2_TOL = 1e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12               # H100 SXM data sheet, non-tensor fp32
 K5_NS = (1, 3, 11, 13, 37, 150)
-K5_WIDTHS = (1, 4095, 100_003)
+# odd or 4095: K5 / K7's per-element loads; multiples of 4: the packed words
+K5_WIDTHS = (1, 4095, 100_003, 4096, 100_004, 1 << 20)
 K3_GRID = ((5, 1), (8, 2), (16, 4), (30, 10), (7, 7), (32, 1))
 RECT_NS = (11, 12, 13, 23, 37)
 RECT_WS = (1, 2, 4, 8)
@@ -448,6 +452,13 @@ def k5_vs_plain(torch):
                        worst)
             del p, mult
             torch.cuda.empty_cache()
+        # one element into a larger buffer: rows off 4-byte words
+        p, mult = k5_payload(torch, N, 100_004, dtype, seed=8)
+        buf = torch.zeros(p.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:] = p.reshape(-1)
+        compare_k5(torch, f"{tag} n={N} d=100004 base+1",
+                   buf[1:].view(p.shape), mult, F, worst)
+        del p, mult, buf
     for spec in ("qsgd:bits=8", "bf16"):
         x = rows_stack(torch, 1_000_000, seed=5)
         enc, _ = CC.get_codec(spec).encode(x, seed=5)

@@ -11,50 +11,43 @@
 // Bound on an H100: bytes.  The kernel must read the payload once: n*d
 // bytes for int8 (3.6 GB at qwen2-1.5b width, 2 layers, n = 11), 2*n*d for
 // bf16; the n(n+1)/2 multiply-adds and n decode multiplies per column
-// stay below the fp32 rate at those byte counts.
+// stay below the fp32 rate at those byte counts.  What held it back was
+// neither: element by element it issued K1's count of load requests for
+// a quarter (int8) or a half (bf16) of K1's bytes, and reloaded each
+// row's multiplier with every element.  What bounds it now is the
+// registers: the 12-row tile's 78 accumulators leave room for two
+// 256-thread blocks an SM (16 warps), and at that occupancy the chain of
+// one group of 32 columns (loads, 12 shuffles and decodes, 78 FMAs) is
+// not hidden; how far ahead the words are loaded does not move it (PERF.md,
+// PR 19: about 5 ms for int8 against a bytes bound of 1.07).
 //
-// Design: K1's template (stats_tile.cuh) with a loader that widens the
-// element and scales it by its row's multiplier, in registers.  The grid,
-// the chunk count (the wrapper calls K1's launch_config), the register
-// tiles and the fixed-order chunk sum are K1's, so K5 on a payload equals
-// K1 on payload.float() * mult[:, None] bit for bit (the contract of the
-// JAX package's DESIGN.md section 9).  __fmul_rn keeps nvcc from fusing
-// the decode multiply into the following FMA, so the decoded value is the
-// rounded product, as the decode computes it.  Negative multipliers (the
-// scale_poison wire attack) keep their sign.  The TPU kernel padded the
-// worker axis to the payload type's sublane tile (32 rows for int8, 16 for
-// bf16) with zero payload and zero multiplier; here rows past n are exact
-// zeros in registers, which is the same contract without the padding.
-//
-// Not yet fast: an int8 load is 32 bytes per warp per row, a quarter of
-// K1's width.  A vectorised loader would reorder the sum and must change
-// K1 in step to keep the bitwise contract; that is later work.
-#include <cuda_bf16.h>
-
-#include "stats_tile.cuh"
+// Design: K1's template (stats_tile.cuh) with the dequantising loader of
+// dequant_rows.cuh, which walks the template's columns itself: packed
+// 4-byte words shared across the warp by __shfl_sync, the next group's
+// words loaded after the current group's products, the multipliers in
+// shared memory (in registers they cost the SM its second block).  The
+// grid, the chunk count (the wrapper calls K1's launch_config), the
+// register tiles, each thread's columns and the fixed-order chunk sum
+// are K1's, so K5 on a
+// payload equals K1 on payload.float() * mult[:, None] bit for bit (the
+// contract of the JAX package's DESIGN.md section 9).  __fmul_rn keeps
+// nvcc from fusing the decode multiply into the following FMA, so the
+// decoded value is the rounded product, as the decode computes it.
+// Negative multipliers (the scale_poison wire attack) keep their sign.
+// The TPU kernel padded the worker axis to the payload type's sublane tile
+// (32 rows for int8, 16 for bf16) with zero payload and zero multiplier;
+// here rows past n are exact zeros in registers, which is the same
+// contract without the padding.
+#include "dequant_rows.cuh"
 
 namespace {
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <class T>
-struct DequantRows {
-  const T* p;
-  const float* mult;
-  int64_t d;
-  __device__ __forceinline__ float load(int64_t row, int64_t col) const {
-    return __fmul_rn(widen(__ldg(p + row * d + col)), __ldg(mult + row));
-  }
-};
 
 template <class T>
 int launch(const void* payload, const void* mult, void* partial, void* dists,
            void* norms, int64_t n, int64_t d, int64_t chunks, int64_t row_tile,
            cudaStream_t s) {
   return stats_tile::launch_stats(
-      DequantRows<T>{(const T*)payload, (const float*)mult, d}, partial, dists,
+      dequant_rows::DequantRows<T>::make(payload, mult, d), partial, dists,
       norms, n, d, chunks, row_tile, s);
 }
 

@@ -15,16 +15,27 @@
 // bytes for int8, 2*n*d for bf16: the block is a view of the gathered
 // payload on the mesh path) and the multipliers.
 //
-// Design: K6's template (stats_rect.cuh) with K5's widening loader, at
-// K1's chunk count for the true worker count, so the block equals K5's
-// matching rows bit for bit, and K6's on the decoded rows.  When the block
-// is the whole payload (a one-rank mesh) it runs K5's symmetric grid, as
-// K6 runs K1's.  Rows past a tile's end are exact zeros in registers (the
-// TPU kernel padded the worker axis to the payload's sublane tile
-// instead).
+// Design: K6's template (stats_rect.cuh) with K5's loader
+// (dequant_rows.cuh: packed words shared across the warp, the multipliers
+// in shared memory), at K1's chunk count for the true worker count, so the
+// block equals K5's matching rows bit for bit, and K6's on the decoded
+// rows.  The loader walks the local and the full rows' columns together;
+// the packed words need both to start on 4-byte words (a row block of an
+// odd d does not: it takes the per-element code).  When the block is the
+// whole payload (a one-rank mesh) it runs K5's symmetric grid on K5's
+// loader, as K6 runs K1's.  What bounds the rectangular grid is the
+// registers: a 4-rank block's (4, 12) tile holds 64 accumulators and 16
+// values, which spill at two blocks an SM, so it runs one (PERF.md, PR 19:
+// the 4-rank block takes about 11 ms for int8 against a bytes bound of
+// 1.17, the parent's 16).
+// Rows past a tile's end are exact zeros in registers (the TPU kernel
+// padded the worker axis to the payload's sublane tile instead).
+#include "dequant_rows.cuh"
 #include "stats_rect.cuh"
 
 namespace {
+
+using dequant_rows::DequantRows;
 
 template <class T>
 int launch(const void* p_loc, const void* m_loc, const void* p_full,
@@ -32,7 +43,7 @@ int launch(const void* p_loc, const void* m_loc, const void* p_full,
            void* dists, void* norms, int64_t n_loc, int64_t n_full, int64_t d,
            int64_t chunks, int64_t tile_loc, int64_t tile_full,
            int64_t square_tile, cudaStream_t s) {
-  const stats_rect::DequantRows<T> full{(const T*)p_full, (const float*)m_full, d};
+  const auto full = DequantRows<T>::make(p_full, m_full, d);
   if (square_tile > 0) {
     if (p_loc != p_full || m_loc != m_full || n_loc != n_full) {
       return (int)cudaErrorInvalidValue;
@@ -41,7 +52,7 @@ int launch(const void* p_loc, const void* m_loc, const void* p_full,
                                     chunks, square_tile, s);
   }
   return stats_rect::launch_rect(
-      stats_rect::DequantRows<T>{(const T*)p_loc, (const float*)m_loc, d}, full,
+      DequantRows<T>::make(p_loc, m_loc, d), full,
       part_g, part_l, part_f, dists, norms, n_loc, n_full, d, chunks,
       tile_loc, tile_full, s);
 }

@@ -1,6 +1,7 @@
 // The rectangular statistics template of K6 (pairwise_stats_rect.cu) and
-// K7 (dequant_stats_rect.cu), and the loaders of K6, K7 and K4
-// (pairwise_sqdist.cu), on K1's template (stats_tile.cuh).
+// K7 (dequant_stats_rect.cu, on K5's loader in dequant_rows.cuh), and the
+// loader of K6 and K4 (pairwise_sqdist.cu), on K1's template
+// (stats_tile.cuh).
 //
 // A rank of the mesh holds its (n_loc, d) row block and the gathered
 // (n_full, d) stack.  One grid of d-chunks computes the partial grams of
@@ -11,7 +12,9 @@
 // same two rows exactly:
 //   * the chunk count is K1's for the true worker count (the wrapper takes
 //     it from launch_config(n, d)), so the 256-thread grid-stride column
-//     walk (stats_tile.cuh:54-55) visits the same columns in each thread;
+//     walk (stats_tile.cuh's tile_pair) visits the same columns in each
+//     thread, and a loader that walks its own columns
+//     (stats_tile::walks_columns) keeps that walk;
 //   * each thread accumulates fmaf(x_i[c], x_j[c], acc) in column order
 //     (fmaf(a, b, c) == fmaf(b, a, c): the operands' order is free);
 //   * the block reduces with stats_tile::warp_sum, then sums the warps in
@@ -27,8 +30,6 @@
 // tile's end are exact zeros in registers.  All offsets are 64-bit.
 #pragma once
 
-#include <cuda_bf16.h>
-
 #include "stats_tile.cuh"
 
 namespace stats_rect {
@@ -36,10 +37,7 @@ namespace stats_rect {
 using stats_tile::kThreads;
 using stats_tile::kWarps;
 using stats_tile::warp_sum;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+using stats_tile::widen;
 
 // An (n, d) stack widened to fp32: for float, K1's loader
 // (pairwise_stats.cu, F32Rows); bf16 widens exactly.
@@ -49,19 +47,6 @@ struct Rows {
   int64_t d;
   __device__ __forceinline__ float load(int64_t row, int64_t col) const {
     return widen(__ldg(x + row * d + col));
-  }
-};
-
-// K5's loader (dequant_stats.cu, DequantRows), the same code: the payload
-// widened and scaled by its row's multiplier, __fmul_rn so that nvcc does
-// not fuse the decode into the following FMA.
-template <class T>
-struct DequantRows {
-  const T* p;
-  const float* mult;
-  int64_t d;
-  __device__ __forceinline__ float load(int64_t row, int64_t col) const {
-    return __fmul_rn(widen(__ldg(p + row * d + col)), __ldg(mult + row));
   }
 };
 
@@ -88,14 +73,8 @@ __device__ void rect_pair(const Loc& loc, const Full& full,
 #pragma unroll
   for (int r = 0; r < RF; ++r) sf[r] = 0.0f;
 
-  const int64_t stride = chunks * (int64_t)kThreads;
-  for (int64_t c = chunk * kThreads + threadIdx.x; c < d; c += stride) {
-    float a[RL];
-    float b[RF];
-#pragma unroll
-    for (int r = 0; r < RL; ++r) a[r] = (i0 + r < n_loc) ? loc.load(i0 + r, c) : 0.0f;
-#pragma unroll
-    for (int r = 0; r < RF; ++r) b[r] = (j0 + r < n_full) ? full.load(j0 + r, c) : 0.0f;
+  // One column's products: local rows a, full rows b.
+  auto step = [&](const float (&a)[RL], const float (&b)[RF]) {
 #pragma unroll
     for (int i = 0; i < RL; ++i) {
 #pragma unroll
@@ -105,6 +84,22 @@ __device__ void rect_pair(const Loc& loc, const Full& full,
     for (int r = 0; r < RL; ++r) sl[r] = fmaf(a[r], a[r], sl[r]);
 #pragma unroll
     for (int r = 0; r < RF; ++r) sf[r] = fmaf(b[r], b[r], sf[r]);
+  };
+
+  const int64_t stride = chunks * (int64_t)kThreads;
+  int64_t c = chunk * kThreads + threadIdx.x;
+  const auto e =
+      stats_tile::elements<RL, RF, false>(loc, full, i0, n_loc, j0, n_full, c, stride, step);
+  const auto& la = stats_tile::loader<0>(e, loc);
+  const auto& lb = stats_tile::loader<1>(e, full);
+  for (; c < d; c += stride) {
+    float a[RL];
+    float b[RF];
+#pragma unroll
+    for (int r = 0; r < RL; ++r) a[r] = (i0 + r < n_loc) ? la.load(i0 + r, c) : 0.0f;
+#pragma unroll
+    for (int r = 0; r < RF; ++r) b[r] = (j0 + r < n_full) ? lb.load(j0 + r, c) : 0.0f;
+    step(a, b);
   }
 
   __shared__ float red[kWarps][kSlots];
@@ -148,10 +143,12 @@ __device__ void rect_pair(const Loc& loc, const Full& full,
 // tiles x ceil(n_full / RF) full tiles, row-major, and blockIdx.y the
 // chunks: the pairs of one chunk are neighbours in launch order, so they
 // run together and share the chunk's columns in L2.  Tiles of at most 48
-// cross accumulators are held to 128 registers, two blocks an SM (the
-// int8 loader's (4, 12) tile took 136 and ran one).
+// cross accumulators are held to 128 registers, two blocks an SM, unless
+// the loader walks its own columns: K7's (4, 12) tile and its packed words
+// spill at 128 registers, so it runs one block.
 template <int RL, int RF, class Loc, class Full>
-__global__ void __launch_bounds__(kThreads, (RL * RF <= 48) ? 2 : 1)
+__global__ void __launch_bounds__(kThreads,
+                                  (RL * RF <= 48 && !stats_tile::walks_columns<Loc>) ? 2 : 1)
 rect_gram_kernel(const Loc loc, const Full full, float* __restrict__ part_g,
                  float* __restrict__ part_l, float* __restrict__ part_f,
                  int64_t n_loc, int64_t n_full, int64_t d, int64_t chunks) {

@@ -1,16 +1,19 @@
 // The pairwise statistics template shared by K1 (pairwise_stats.cu) and
-// K5 (dequant_stats.cu).
+// K5 (dequant_stats.cu, on the loader of dequant_rows.cuh).
 //
 // One grid of d-chunks computes the partial grams of an (n, d) stack whose
 // rows come from a loader; a second kernel sums the chunks in a fixed order
 // and forms the raw sq_i + sq_j - 2 g_ij (unclamped, diagonal kept) and the
 // (n,) squared norms.  A loader is a small struct with
 //   __device__ float load(int64_t row, int64_t col) const;
-// that returns the fp32 value of one element.  K1's loader reads an fp32
-// stack; K5's widens an int8 or bf16 payload and scales it by a per-row
-// multiplier.  Everything else (grid, chunk count, register tiles, the
-// order of every fp32 operation) is this one template, so K5 on a payload
-// equals K1 on the decoded stack bit for bit.
+// that returns the fp32 value of one element (K1's reads an fp32 stack).
+// A loader that declares kWalksColumns (K5's, dequant_rows.cuh) first
+// walks the columns it can itself (elements()): it calls the template's
+// per-column step with the same columns in the same order, loading them
+// as it chooses, and hands the rest to the per-element loop.  Either
+// way everything else (grid, chunk count, register tiles, the order of
+// every fp32 operation) is this one template, so K5 on a payload equals
+// K1 on the decoded stack bit for bit.
 //
 // Design (bound on an H100: bytes):
 //   * one thread per column (grid-stride): each thread loads the R values
@@ -27,18 +30,71 @@
 //   * all offsets are 64-bit: an embedding leaf stack holds > 2^31 values.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace stats_tile {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Whether a loader walks its own columns (a compile-time property: the
+// loaders without kWalksColumns keep the per-element loop as it was).
+template <class Rows, class = void>
+constexpr bool walks_columns = false;
+template <class Rows>
+constexpr bool walks_columns<Rows, std::void_t<decltype(Rows::kWalksColumns)>> =
+    Rows::kWalksColumns;
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// The loaders of a tile pair's per-element column walk.  A loader that
+// walks its own columns (K5's) first walks what it can from this thread's
+// column c: it calls step() for those columns, advances c past them and
+// returns the Tiles that load the rest.  Any other loader (K1's, K4's,
+// K6's) walks nothing and loads its own elements (Own): the loop reads
+// that loader directly, since a returned struct of references to it changes
+// the registers of K6's (4, 12) kernel.
+struct Own {};
+template <class A, class B>
+struct Tiles {
+  A a;
+  B b;
+};
+
+template <int RA, int RB, bool SAME, class LA, class LB, class Step>
+__device__ __forceinline__ auto elements(const LA& la, const LB& lb, int64_t ia,
+                                         int64_t na, int64_t ib, int64_t nb,
+                                         int64_t& c, int64_t stride, Step& step) {
+  if constexpr (walks_columns<LA>) {
+    return la.template columns<RA, RB, SAME>(lb, ia, na, ib, nb, c, stride, step);
+  } else {
+    return Own{};
+  }
+}
+
+// The element loader of row tile K (0: a, 1: b) after elements(): its
+// tile, or the template's own loader l.
+template <int K, class E, class L>
+__device__ __forceinline__ const auto& loader(const E& e, const L& l) {
+  if constexpr (std::is_same_v<E, Own>) {
+    return l;
+  } else if constexpr (K == 0) {
+    return e.a;
+  } else {
+    return e.b;
+  }
 }
 
 // One block: row tiles I (rows i0..i0+R) and J (rows j0..j0+R) over the
@@ -51,11 +107,9 @@ __device__ void tile_pair(const Rows& rows, float* __restrict__ partial,
 #pragma unroll
   for (int p = 0; p < R * R; ++p) acc[p] = 0.0f;
 
-  const int64_t stride = chunks * (int64_t)kThreads;
-  for (int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x; c < d; c += stride) {
-    float a[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) a[r] = (i0 + r < n) ? rows.load(i0 + r, c) : 0.0f;
+  // One column's products: rows a of tile I, rows b of tile J (b is a on
+  // the diagonal).
+  auto step = [&](const float (&a)[R], const float (&b)[R]) {
     if constexpr (DIAG) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -63,14 +117,30 @@ __device__ void tile_pair(const Rows& rows, float* __restrict__ partial,
         for (int j = i; j < R; ++j) acc[i * R + j] = fmaf(a[i], a[j], acc[i * R + j]);
       }
     } else {
-      float b[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) b[r] = (j0 + r < n) ? rows.load(j0 + r, c) : 0.0f;
 #pragma unroll
       for (int i = 0; i < R; ++i) {
 #pragma unroll
         for (int j = 0; j < R; ++j) acc[i * R + j] = fmaf(a[i], b[j], acc[i * R + j]);
       }
+    }
+  };
+
+  const int64_t stride = chunks * (int64_t)kThreads;
+  int64_t c = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const auto e = elements<R, R, DIAG>(rows, rows, i0, n, j0, n, c, stride, step);
+  const auto& la = loader<0>(e, rows);
+  const auto& lb = loader<1>(e, rows);
+  for (; c < d; c += stride) {
+    float a[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) a[r] = (i0 + r < n) ? la.load(i0 + r, c) : 0.0f;
+    if constexpr (DIAG) {
+      step(a, a);
+    } else {
+      float b[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) b[r] = (j0 + r < n) ? lb.load(j0 + r, c) : 0.0f;
+      step(a, b);
     }
   }
 
@@ -105,9 +175,8 @@ __device__ void tile_pair(const Rows& rows, float* __restrict__ partial,
 // enumerates the tile pairs (I, J), I <= J, row-major; off-diagonal pairs
 // hold R*R accumulators, so only R = 8 is instantiated for them.
 template <int R, bool SINGLE_TILE, class Rows>
-__global__ void __launch_bounds__(kThreads)
-partial_gram_kernel(const Rows rows, float* __restrict__ partial, int64_t n,
-                    int64_t d, int64_t chunks) {
+__device__ __forceinline__ void partial_gram(const Rows& rows, float* __restrict__ partial,
+                                             int64_t n, int64_t d, int64_t chunks) {
   if constexpr (SINGLE_TILE) {
     tile_pair<R, true>(rows, partial, n, d, 0, 0, chunks);
   } else {
@@ -125,6 +194,35 @@ partial_gram_kernel(const Rows rows, float* __restrict__ partial, int64_t n,
     } else {
       tile_pair<R, false>(rows, partial, n, d, I * R, J * R, chunks);
     }
+  }
+}
+
+template <int R, bool SINGLE_TILE, class Rows>
+__global__ void __launch_bounds__(kThreads)
+partial_gram_kernel(const Rows rows, float* __restrict__ partial, int64_t n,
+                    int64_t d, int64_t chunks) {
+  partial_gram<R, SINGLE_TILE>(rows, partial, n, d, chunks);
+}
+
+// The same for a loader that walks its own columns (K5's), held to two
+// blocks an SM at a single tile of at most 12 rows: its 78 accumulators
+// and the packed words fit in 128 registers, and a second block is what
+// pays (PERF.md, PR 19).  partial_gram_kernel must not carry this bound:
+// even a bound of one block changes how ptxas allocates K1's registers.
+template <int R, bool SINGLE_TILE, class Rows>
+__global__ void __launch_bounds__(kThreads, SINGLE_TILE && R <= 12 ? 2 : 1)
+partial_gram_bounded_kernel(const Rows rows, float* __restrict__ partial, int64_t n,
+                            int64_t d, int64_t chunks) {
+  partial_gram<R, SINGLE_TILE>(rows, partial, n, d, chunks);
+}
+
+template <int R, bool SINGLE_TILE, class Rows>
+void launch_partial_gram(dim3 grid, cudaStream_t s, const Rows& rows, float* part,
+                         int64_t n, int64_t d, int64_t chunks) {
+  if constexpr (walks_columns<Rows>) {
+    partial_gram_bounded_kernel<R, SINGLE_TILE><<<grid, kThreads, 0, s>>>(rows, part, n, d, chunks);
+  } else {
+    partial_gram_kernel<R, SINGLE_TILE><<<grid, kThreads, 0, s>>>(rows, part, n, d, chunks);
   }
 }
 
@@ -167,13 +265,13 @@ int launch_stats(const Rows& rows, void* partial, void* dists, void* norms,
   dim3 grid((unsigned)chunks, (unsigned)gy, (unsigned)gz);
   float* part = (float*)partial;
   if (row_tile == 16 && n <= 16) {
-    partial_gram_kernel<16, true><<<grid, kThreads, 0, s>>>(rows, part, n, d, chunks);
+    launch_partial_gram<16, true>(grid, s, rows, part, n, d, chunks);
   } else if (row_tile == 12 && n <= 12) {
-    partial_gram_kernel<12, true><<<grid, kThreads, 0, s>>>(rows, part, n, d, chunks);
+    launch_partial_gram<12, true>(grid, s, rows, part, n, d, chunks);
   } else if (row_tile == 8 && n <= 8) {
-    partial_gram_kernel<8, true><<<grid, kThreads, 0, s>>>(rows, part, n, d, chunks);
+    launch_partial_gram<8, true>(grid, s, rows, part, n, d, chunks);
   } else if (row_tile == 8) {
-    partial_gram_kernel<8, false><<<grid, kThreads, 0, s>>>(rows, part, n, d, chunks);
+    launch_partial_gram<8, false>(grid, s, rows, part, n, d, chunks);
   } else {
     return (int)cudaErrorInvalidValue;
   }

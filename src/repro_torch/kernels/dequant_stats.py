@@ -6,9 +6,10 @@ Replaces ``repro/kernels/dequant_stats.py::dequant_stats_pallas``: an
 multipliers -> K1's raw (n, n) distances and (n,) squared norms of the
 decoded rows ``payload.float() * mult[:, None]``, without the decoded fp32
 stack in device memory.  The kernel is K1's template with a widening
-loader, launched with K1's :func:`launch_config`, so on the card it equals
-K1 on the decoded stack bit for bit.  Its plain version is
-``kernels/ref.py::dequant_stats_ref``.
+loader (``csrc/dequant_rows.cuh``: 4-byte payload words shared across the
+warp, where every row starts on a word), launched with K1's
+:func:`launch_config`, so on the card it equals K1 on the decoded stack
+bit for bit.  Its plain version is ``kernels/ref.py::dequant_stats_ref``.
 
 K7 replaces ``dequant_stats_rect_pallas``: one mesh rank's (n_loc, d)
 payload block and multipliers against the gathered payload, K6's

@@ -368,22 +368,38 @@ def test_k2_kernel_matches_plain_on_card(card, n, f, d):
     assert torch.equal(got, want)
 
 
+#: K5 / K7 card widths: odd or 4095 (the per-element loads) and multiples
+#: of 4 (the packed words; 4096 is one whole group of 32 columns a warp)
+K5_WIDTHS = [1, 4095, 100_003, 4096, 100_004, 1 << 20]
+
+
+def _k5_payload(n, d, dtype, card, seed, x_seed, offset=0):
+    """(n, d) payload on the card, starting ``offset`` elements into a
+    larger buffer (offset 1: a base that is not 4-byte aligned), and (n,)
+    multipliers, row 0's negative: int8 levels and the multipliers drawn
+    from ``seed``, float rows ``_x(n, d, x_seed)``."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int8:
+        flat = rng.integers(-127, 128, size=n * d).astype(np.int8)
+        p = torch.from_numpy(flat)
+    else:
+        p = _t(_x(n, d, seed=x_seed).reshape(-1)).to(dtype)
+    buf = torch.zeros(n * d + offset, dtype=dtype, device=card)
+    buf[offset:] = p.to(card)
+    mult = _t((rng.random(n) + 0.5) / 127.0).to(card)
+    mult[0] = -100.0 * mult[0]
+    return buf[offset:].view(n, d), mult
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [1, 3, 11, 13, 37, 150])
-@pytest.mark.parametrize("d", [1, 4095, 100_003])
+@pytest.mark.parametrize("d", K5_WIDTHS)
 def test_k5_kernel_equals_k1_on_decoded_on_card(card, n, d, dtype):
     """K5 on a payload == K1 on payload.float() * mult, bit for bit (the
     same template, grid and chunk order), and within K1's tolerance of
     the plain version; row 0 carries a negative multiplier."""
-    rng = np.random.default_rng(n * 7 + d)
-    if dtype == torch.int8:
-        p = torch.from_numpy(rng.integers(-127, 128, size=(n, d))
-                             .astype(np.int8)).to(card)
-    else:
-        p = _t(_x(n, d, seed=n + d)).to(dtype).to(card)
-    mult = _t((rng.random(n) + 0.5) / 127.0).to(card)
-    mult[0] = -100.0 * mult[0]
+    p, mult = _k5_payload(n, d, dtype, card, n * 7 + d, n + d)
     got_d, got_s = dequant_stats_cuda(p, mult)
     k1_d, k1_s = pairwise_stats_cuda(p.float() * mult[:, None])
     want_d, want_s = ref.dequant_stats_ref(p, mult)
@@ -393,6 +409,22 @@ def test_k5_kernel_equals_k1_on_decoded_on_card(card, n, d, dtype):
     np.testing.assert_allclose(got_d.cpu().numpy(), want_d.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * scale)
     _close(got_s.cpu().numpy(), want_s.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n", [11, 13])
+@pytest.mark.parametrize("d", [4096, 100_004])
+def test_k5_unaligned_base_equals_k1_on_card(card, n, d, dtype):
+    """A payload one element into a larger buffer (its rows do not start
+    on 4-byte words, so the packed loads cannot run) is K1 on its decoded
+    stack bit for bit, as the aligned payload is."""
+    p, mult = _k5_payload(n, d, dtype, card, n * 5 + d, n + d, offset=1)
+    assert p.is_contiguous() and p.data_ptr() % 4 != 0
+    got_d, got_s = dequant_stats_cuda(p, mult)
+    k1_d, k1_s = pairwise_stats_cuda(p.float() * mult[:, None])
+    torch.cuda.synchronize()
+    assert torch.equal(got_d, k1_d) and torch.equal(got_s, k1_s)
 
 
 def _coord_inputs(theta, d, seed, ties=False):

@@ -707,12 +707,15 @@ def test_k6_rows_equal_k1_rows_on_card(card, n, W, d, inf):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("d", [1, 4095, 100_003])
+@pytest.mark.parametrize("d", [1, 4095, 100_003, 4096, 100_004, 1 << 20])
 @pytest.mark.parametrize("W", [1, 2, 4, 8])
 @pytest.mark.parametrize("n", [11, 13, 37])
 def test_k7_rows_equal_k5_rows_on_card(card, n, W, d, dtype):
     """Every rank's block of K7 is K5's matching rows bit for bit (a
-    negative multiplier included), and K6's on the decoded rows."""
+    negative multiplier included), and K6's on the decoded rows.  A block
+    is a view at offset a * d of the padded payload: at a d that is a
+    multiple of 4 its rows start on 4-byte words (the packed loads), at
+    an odd d they do not (the per-element loads)."""
     from repro_torch.kernels.dequant_stats import dequant_stats_cuda
     rng = np.random.default_rng(n * W + d)
     if dtype == torch.int8:
@@ -739,6 +742,39 @@ def test_k7_rows_equal_k5_rows_on_card(card, n, W, d, dtype):
             assert _same(got_d[:rows, :n], k5_d[a:a + rows])
         assert _same(got_s[:n], k5_s)
         assert _same(got_d, k6_d) and _same(got_s, k6_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 4])
+def test_k7_unaligned_base_equals_k5_rows_on_card(card, W, dtype):
+    """The padded payload one element into a larger buffer (no block's rows
+    start on 4-byte words; at W = 1 the block is the payload itself, on
+    K5's symmetric grid): every block is still K5's rows bit for bit."""
+    from repro_torch.kernels.dequant_stats import dequant_stats_cuda
+    n, d = 11, 4096
+    rng = np.random.default_rng(W + d)
+    if dtype == torch.int8:
+        p = torch.from_numpy(rng.integers(-127, 128, size=(n, d))
+                             .astype(np.int8)).to(card)
+    else:
+        p = torch.from_numpy(_x(n, d, seed=n + d)).to(dtype).to(card)
+    m = torch.from_numpy(((rng.random(n) + 0.5) / 127.0)
+                         .astype(np.float32)).to(card)
+    m[0] = -100.0 * m[0]
+    k5_d, k5_s = dequant_stats_cuda(p, m)
+    pf, blocks = _padded(p, W)
+    mf, _ = _padded(m, W)
+    buf = torch.zeros(pf.numel() + 1, dtype=dtype, device=card)
+    buf[1:] = pf.reshape(-1)
+    pf = buf[1:].view(pf.shape)
+    assert pf.data_ptr() % 4 != 0
+    for a, b in blocks:
+        got_d, got_s = dequant_stats_rect_cuda(pf[a:b], mf[a:b], pf, mf, n=n)
+        torch.cuda.synchronize()
+        rows = min(b, n) - a
+        assert _same(got_d[:rows, :n], k5_d[a:a + rows])
+        assert _same(got_s[:n], k5_s)
 
 
 @pytest.mark.cuda

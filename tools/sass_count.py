@@ -7,8 +7,8 @@
 Each source is compiled with the flags of ``repro_torch/kernels/build.py``
 (``sm_90a``, ``-O3``, ``-Xptxas -v``) into a cubin, whose SASS
 ``cuobjdump -sass`` prints.  For every kernel whose name contains
-``--match`` it prints one JSON line: the registers and spills ptxas
-reports, the static instruction count, the count by opcode (the part
+``--match`` it prints one JSON line: the registers, stack frame and
+spills ptxas reports, the static instruction count, the count by opcode (the part
 before the first dot: ``FADD``, ``FMUL``, ``LDG``, ``LDS``, ...), and every
 loop (a branch back to an earlier address) with its instruction count and
 opcodes, innermost first.  ``--dump DIR`` also writes each kernel's SASS
@@ -42,14 +42,19 @@ def tool(name):
 
 
 def ptxas_report(text):
-    """{mangled kernel name: {"registers": r, "spill_stores": s,
-    "spill_loads": l}} from nvcc's -Xptxas -v output."""
+    """{mangled kernel name: {"registers": r, "stack_frame": f,
+    "spill_stores": s, "spill_loads": l}} from nvcc's -Xptxas -v output
+    (a stack frame is local memory: an array the compiler could not keep
+    in registers)."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
             out[name] = {}
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out[name]["stack_frame"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:

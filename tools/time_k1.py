@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time K1 (``pairwise_stats``), K2 (``fused_select``) or K3
-(``coord_select``) of several checkouts of the port on one card.
+"""Time K1 (``pairwise_stats``), K2 (``fused_select``), K3
+(``coord_select``), K5 (``dequant_stats``) or K7 (``dequant_stats_rect``)
+of several checkouts of the port on one card.
 
-    python3 tools/time_k1.py SRC_A SRC_B [--kernel k1|k2|k3] [--order ABBA]
-                             [--reps 5] [--n 11] [--f 2]
+    python3 tools/time_k1.py SRC_A SRC_B [--kernel k1|k2|k3|k5|k7]
+                             [--dtype int8|bf16] [--grid square|block]
+                             [--order ABBA] [--reps 5] [--n 11] [--f 2]
 
 Each ``SRC`` is the ``src`` directory of a checkout of this repository
 (for example a ``git archive`` of an earlier commit unpacked beside this
@@ -18,9 +20,17 @@ per-step number as ``chip_smoke.py``'s ``ms`` for that kernel.  K2 takes
 the multi-Bulyan plan of the leaves' K1 distances at ``--f`` (theta =
 n - 2f - 2, beta = theta - 2f); K3 takes that plan's theta and beta on
 (theta, d) ``g_ext``/``g_agr`` filled with the leaf's noise (one product
-of the stack would not fit beside the stack at theta = 32).  It also
-prints a hash of the kernel's outputs over every leaf, so that two
-versions that should agree bit for bit can be seen to.
+of the stack would not fit beside the stack at theta = 32).  K5 and K7
+take the leaf's wire payload in ``--dtype``: the QSGD int8 (``qsgd:bits=8``)
+or the bf16 form, with its per-row multipliers (QSGD's scales, bf16's
+ones) and row 0's negated, as a ``scale_poison`` row sends it.  K7's
+``--grid square`` is the whole payload as the block (a one-rank mesh: K5's
+symmetric grid); ``--grid block`` pads the payload to 4 ranks' rows with
+zero rows and multipliers (n_loc = 3 of 12 at n = 11, as in
+``chip_smoke.py``'s mesh phase), times rank 1's block (the rectangular
+grid) and hashes every rank's.  It also prints a hash of the kernel's
+outputs over every leaf, so that two versions that should agree bit for
+bit can be seen to.
 
 The card's name and power limit come first; the last line is one JSON
 object with every run and, per checkout, the median over its runs.
@@ -49,7 +59,33 @@ def fill(torch, rows, m, seed):
     return x
 
 
-def child(src, kernel, reps, n, f):
+def wire_payload(torch, x, dtype, seed):
+    """(payload, fp32 multipliers) of x's int8 QSGD or bf16 wire, row 0's
+    multiplier negated."""
+    from repro_torch.comm import codecs as CC
+    codec = CC.get_codec("qsgd:bits=8" if dtype == "int8" else "bf16")
+    enc, _ = codec.encode(x, seed=seed)
+    p, mult = codec.dequant_form(enc.payload, enc.sidecar)
+    mult = mult.float().contiguous()
+    mult[0] = -mult[0]
+    return p.contiguous(), mult
+
+
+def padded_blocks(torch, p, mult, ranks=4):
+    """The payload and multipliers padded with zero rows to ``ranks``
+    blocks of n_loc rows, and the blocks (views)."""
+    n = p.shape[0]
+    n_loc = -(-n // ranks)
+    pf = torch.zeros((n_loc * ranks, p.shape[1]), dtype=p.dtype,
+                     device=p.device)
+    pf[:n] = p
+    mf = torch.zeros((n_loc * ranks,), dtype=torch.float32, device=p.device)
+    mf[:n] = mult
+    return pf, mf, [(pf[r * n_loc:(r + 1) * n_loc],
+                     mf[r * n_loc:(r + 1) * n_loc]) for r in range(ranks)]
+
+
+def child(src, kernel, reps, n, f, dtype, grid):
     sys.path.insert(0, src)
     import dataclasses
 
@@ -68,6 +104,10 @@ def child(src, kernel, reps, n, f):
     if kernel == "k3":
         from repro_torch.kernels.coord_select import coord_select_cuda
         names += ("coord_select",)
+    if kernel in ("k5", "k7"):
+        from repro_torch.kernels.dequant_stats import (
+            dequant_stats_cuda, dequant_stats_rect_cuda)
+        names += ("dequant_stats", "dequant_stats_rect")
     build.build(names)
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
     params = MD.init_model(cfg, seed=0, device="cuda")
@@ -82,10 +122,14 @@ def child(src, kernel, reps, n, f):
     theta = plan.w_ext.shape[0]
 
     def inputs(i, m):
+        if kernel in ("k5", "k7"):
+            return wire_payload(torch, fill(torch, n, m, i), dtype, i)
         if kernel != "k3":
             return (fill(torch, n, m, i),)
         g = fill(torch, 2 * theta, m, i)
         return g[:theta], g[theta:]
+
+    hashed = None       # what is hashed, when it is not what is timed
 
     if kernel == "k1":
         def fn(x):
@@ -93,14 +137,29 @@ def child(src, kernel, reps, n, f):
     elif kernel == "k2":
         def fn(x):
             return (fused_select_cuda(x, plan.w_ext, plan.w_agr, plan.beta),)
-    else:
+    elif kernel == "k3":
         def fn(ge, ga):
             return (coord_select_cuda(ge, ga, plan.beta),)
+    elif kernel == "k5":
+        def fn(p, mult):
+            return dequant_stats_cuda(p, mult)
+    elif grid == "square":
+        def fn(p, mult):
+            return dequant_stats_rect_cuda(p, mult, p, mult, n=n)
+    else:
+        def fn(p, mult):
+            return dequant_stats_rect_cuda(*blocks[1], pf, mf, n=n)
+
+        def hashed(p, mult):
+            return [t for b in blocks for t in dequant_stats_rect_cuda(
+                *b, pf, mf, n=n)]
     digest = hashlib.sha256()
     total = 0.0
     for i, m in enumerate(numels):
         args = inputs(i, m)
-        for out in fn(*args):
+        if kernel == "k7" and grid == "block":
+            pf, mf, blocks = padded_blocks(torch, *args)
+        for out in (hashed or fn)(*args):
             digest.update(out.cpu().numpy().tobytes())
         times = []
         for _ in range(reps if m > 10_000_000 else 4 * reps):
@@ -113,16 +172,23 @@ def child(src, kernel, reps, n, f):
             times.append(a.elapsed_time(b))
         total += statistics.median(times)
         del args
+        if kernel == "k7" and grid == "block":
+            del pf, mf, blocks
     print(json.dumps({"src": src, "kernel": kernel, "ms": total,
                       "leaves": len(numels), "n": n, "theta": theta,
-                      "beta": plan.beta, "sha256": digest.hexdigest()}),
-          flush=True)
+                      "beta": plan.beta, "dtype": dtype, "grid": grid,
+                      "sha256": digest.hexdigest()}), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("srcs", nargs="+")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k5", "k7"),
+                    default="k1")
+    ap.add_argument("--dtype", choices=("int8", "bf16"), default="int8",
+                    help="K5 / K7: the wire payload's type")
+    ap.add_argument("--grid", choices=("square", "block"), default="square",
+                    help="K7: the whole payload, or rank 1 of 4 blocks")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--n", type=int, default=N)
@@ -130,7 +196,8 @@ def main():
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.srcs[0], args.kernel, args.reps, args.n, args.f)
+        child(args.srcs[0], args.kernel, args.reps, args.n, args.f,
+              args.dtype, args.grid)
         return 0
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -142,7 +209,8 @@ def main():
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--child", "--kernel", args.kernel, "--reps",
                               str(args.reps), "--n", str(args.n), "--f",
-                              str(args.f), src],
+                              str(args.f), "--dtype", args.dtype, "--grid",
+                              args.grid, src],
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, flush=True)
@@ -155,7 +223,8 @@ def main():
     for run in runs:
         per.setdefault(run["label"], []).append(run["ms"])
     print(json.dumps({"runs": runs, "kernel": args.kernel, "n": args.n,
-                      "f": args.f, "median_ms": {
+                      "f": args.f, "dtype": args.dtype, "grid": args.grid,
+                      "median_ms": {
         k: statistics.median(v) for k, v in per.items()},
         "same_outputs": len({r["sha256"] for r in runs}) == 1}), flush=True)
     return 0
