@@ -89,8 +89,10 @@ The mesh-native statistics (after phase 3, 10 and 11 in that order):
   versions: K6 on every row block of W in {1, 2, 4, 8} rank meshes for n
   in {11, 12, 13, 23, 37} x d in CHECK_WIDTHS, on the ``inf``-attack
   stack, and on the embedding leaf at rank 1 of 4; each block (a view of
-  the zero-padded stack) bit for bit K1's matching rows, NaN and inf in
-  place, and within K1's tolerance of its plain version.  K7 the same on
+  the zero-padded stack: the view path where that stack has at most 16
+  rows) and a copy of it (the rectangular grid without the view path)
+  bit for bit K1's matching rows and each other, NaN and inf in place,
+  and within K1's tolerance of its plain version.  K7 the same on
   int8 and bf16 payloads (n in {11, 13, 37} x d in K5's widths, the
   embedding leaf, QSGD and bf16 wires forged by ``scale_poison``) against
   K5's rows; a mixed-type call must raise.  K4 on fp32 and bf16 stacks
@@ -106,11 +108,14 @@ The mesh-native statistics (after phase 3, 10 and 11 in that order):
   and nothing else, each on the square kernel's symmetric grid, since a
   one-rank block is the stack itself.  Then, in one process, the 4 row
   blocks of a 4-rank mesh (3 of 12 rows) through K6 leaf by leaf, and
-  through K7 on the int8 wire, each launch on the rectangular grid,
-  assembled: bit for bit the replicated raw (n, n) and norms;
-* timing of K6 at 1x1 and on a 4-rank block, K7 (int8, bf16) the same,
-  and K4, at the main path's leaf shapes beside their plain versions,
-  library calls (``torch.mm``; none for K7) and bounds.  The ``kernels``
+  through K7 on the int8 wire, each launch on the rectangular grid (every
+  K6 launch on its view path), assembled: bit for bit the replicated raw
+  (n, n) and norms;
+* timing of K6 at 1x1 and on a 4-rank block (and, logged, a copy of that
+  block: the rectangular grid without the view path), K7 (int8, bf16) the
+  same, and K4, at the main path's leaf shapes beside their plain
+  versions, library calls (``torch.mm``; none for K7) and bounds.  The
+  ``kernels``
   line has one entry for each grid of K6 and K7: ``pairwise_stats_rect``
   and ``dequant_stats_rect`` (the symmetric grid, the NCCL world's
   launches) and ``pairwise_stats_rect_block`` and
@@ -791,35 +796,56 @@ def stats_err(torch, got_d, got_s, want_d, want_s):
                               e_s / max(1.0, s_max))
 
 
+def k6_launch(torch, blk, full, n):
+    """K6 on one block: (raw block, norms, the path that ran: "symmetric",
+    "view" or "rectangular")."""
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_rect_cuda
+    sq = pairwise_stats_rect_cuda.square_launches
+    vw = pairwise_stats_rect_cuda.view_launches
+    got_d, got_s = pairwise_stats_rect_cuda(blk, full, n=n)
+    path = "symmetric" if pairwise_stats_rect_cuda.square_launches > sq \
+        else "view" if pairwise_stats_rect_cuda.view_launches > vw \
+        else "rectangular"
+    return got_d, got_s, path
+
+
 def k6_blocks(torch, label, x, Ws, worst, ranks=None):
     """Every rank's (or ``ranks``') K6 block of the stack ``x`` on W-rank
-    meshes: the block a view of the zero-padded stack, K1's chunk count
-    for the true n (at W = 1 the whole stack, which K6 runs on K1's
-    symmetric grid, and also a copy of it, on the rectangular grid).  Each
-    block must be K1's matching rows bit for bit (NaN and inf in place)
-    and within K1_TOL of its plain version; the worst error is kept by the
-    grid that ran (``pairwise_stats_rect`` on the symmetric grid,
+    meshes, K1's chunk count for the true n: the block a view of the
+    zero-padded stack (at W = 1 the whole stack, which K6 runs on K1's
+    symmetric grid; at W > 1 on the rectangular grid, on its view path
+    where the padded stack has at most 16 rows), and a copy of it (the
+    rectangular grid without the view path).  Each must be K1's matching
+    rows bit for bit (NaN and inf in place) and within K1_TOL of its
+    plain version, and the view and the copy the same bits on the whole
+    block and norms; the worst error is kept by the grid that ran
+    (``pairwise_stats_rect`` on the symmetric grid,
     ``pairwise_stats_rect_block`` on the rectangular one).  Returns the
-    number of blocks checked."""
+    number of blocks and copies checked."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pairwise_sqdist import (pairwise_stats_cuda,
-                                                     pairwise_stats_rect_cuda)
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
     n = x.shape[0]
     k1_d, k1_s = pairwise_stats_cuda(x)
     count = 0
     for W in Ws:
         full, n_loc = padded(torch, x, W)
-        blocks = [(r, full[r * n_loc:(r + 1) * n_loc])
-                  for r in (range(W) if ranks is None else ranks)]
-        if W == 1:      # the whole stack as a copy: the rectangular grid
-            blocks.append((0, full.clone()))
-        for r, blk in blocks:
-            before = pairwise_stats_rect_cuda.square_launches
-            got_d, got_s = pairwise_stats_rect_cuda(blk, full, n=n)
-            grid = "" if pairwise_stats_rect_cuda.square_launches > before \
-                else "_block"
+        want_path = "symmetric" if W == 1 else \
+            "view" if full.shape[0] <= 16 else "rectangular"
+        for r in (range(W) if ranks is None else ranks):
+            blk = full[r * n_loc:(r + 1) * n_loc]
+            got_d, got_s, path = k6_launch(torch, blk, full, n)
+            copy = blk.clone()
+            copy_d, copy_s, copy_path = k6_launch(torch, copy, full, n)
+            del copy
             want_d, want_s = ref.pairwise_stats_rect_ref(blk, full)
             torch.cuda.synchronize()
+            check((path, copy_path) == (want_path, "rectangular"),
+                  f"K6 {label} W={W} rank {r}: ran {path} / {copy_path} "
+                  f"(block / copy), want {want_path} / rectangular")
+            check(same_bits(torch, got_d, copy_d) and
+                  same_bits(torch, got_s, copy_s),
+                  f"K6 {label} W={W} rank {r}: the block and its copy "
+                  f"differ")
             rows = max(0, min(n_loc, n - r * n_loc))
             check(same_bits(torch, got_d[:rows, :n],
                             k1_d[r * n_loc:r * n_loc + rows]) and
@@ -829,10 +855,14 @@ def k6_blocks(torch, label, x, Ws, worst, ranks=None):
                                  want_d[:rows, :n], want_s[:n])
             check(rel <= K1_TOL, f"K6 {label} W={W} rank {r}: relative "
                   f"error {rel:.3e} > {K1_TOL} against its plain version")
-            key = "pairwise_stats_rect" + grid
-            worst[key] = max(worst[key], err)
-            count += 1
-            del got_d, got_s, want_d, want_s
+            # the copy ran the rectangular grid, with the block's bits
+            worst["pairwise_stats_rect_block"] = max(
+                worst["pairwise_stats_rect_block"], err)
+            if path == "symmetric":
+                worst["pairwise_stats_rect"] = max(
+                    worst["pairwise_stats_rect"], err)
+            count += 2
+            del got_d, got_s, copy_d, copy_s, want_d, want_s
         del full
     return count
 
@@ -960,9 +990,11 @@ def rect_vs_square(torch):
             del x, got, raw, sq, plain
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    log(f"K6: {k6} row blocks (n in {list(RECT_NS)}, W in {list(RECT_WS)}, "
-        f"d in {list(CHECK_WIDTHS)}; inf attack; embedding rank 1 of "
-        f"{MESH_W}) equal K1's rows bit for bit; K7: {k7} row blocks (int8, "
+    log(f"K6: {k6} row blocks and copies (n in {list(RECT_NS)}, W in "
+        f"{list(RECT_WS)}, d in {list(CHECK_WIDTHS)}; inf attack; embedding "
+        f"rank 1 of {MESH_W}) equal K1's rows and each other bit for bit, "
+        f"every view block of a stack of at most 16 rows on the view path; "
+        f"K7: {k7} row blocks (int8, "
         f"bf16, qsgd and bf16 scale_poison wires) equal K5's rows bit for "
         f"bit, a mixed-type call refused; K4: {k4} stacks (fp32, bf16) equal "
         f"finalize_dists(K1) bit for bit; worst abs err against the plain "
@@ -1121,6 +1153,11 @@ def mesh_blocks(torch, label, g, wire):
     square = ops.square_launch_counts()[kernel]
     check(square == 0, f"{label}: {square} launches on the symmetric grid, "
           f"want none (a block of {n_loc} rows is not the stack)")
+    if not wire:
+        view = ops.view_launch_counts()[kernel]
+        check(view == want_c[kernel], f"{label}: {view} launches on the "
+              f"view path, want all {want_c[kernel]} (each block is rows "
+              f"of a {n_loc * MESH_W}-row stack)")
     got = torch.cat(tot_d)[:N, :N]
     check(same_bits(torch, got, raw_want) and
           all(same_bits(torch, s[:N], sq_want) for s in tot_s),
@@ -1132,8 +1169,9 @@ def mesh_blocks(torch, label, g, wire):
           f"{label}: the assembled plan differs")
     log(f"{label}: the {MESH_W} row blocks of {len(items)} leaves (n_loc "
         f"{n_loc} of n_pad {n_loc * MESH_W}, {want_c[kernel]} launches of "
-        f"the rectangular grid) assembled equal the replicated raw (n, n) "
-        f"and every rank's norms bit for bit; plan identical")
+        f"the rectangular grid{'' if wire else ', all on its view path'}) "
+        f"assembled equal the replicated raw (n, n) and every rank's norms "
+        f"bit for bit; plan identical")
     return want_c[kernel]
 
 
@@ -1417,7 +1455,9 @@ def mesh_timing(torch, shapes):
     symmetric grid; and, logged, a copy of the stack as the block: the
     rectangular grid at n_loc = n) and on the block of rank 1 of a
     MESH_W-rank mesh (3 of 12 rows, a view of the zero-padded stack: the
-    rectangular grid), K7 the same on int8 and bf16 payloads, and K4."""
+    rectangular grid's view path; and, logged, a copy of that block: the
+    rectangular grid without it), K7 the same on int8 and bf16 payloads,
+    and K4."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_stats import dequant_stats_rect_cuda
     from repro_torch.kernels.pairwise_sqdist import (pairwise_sqdist_cuda,
@@ -1457,6 +1497,10 @@ def mesh_timing(torch, shapes):
         del copy
         tot["k6_block"] += time_ms(
             torch, lambda: pairwise_stats_rect_cuda(blk, full, n=N), reps)
+        copy = blk.clone()
+        tot["k6_block_copy"] += time_ms(
+            torch, lambda: pairwise_stats_rect_cuda(copy, full, n=N), reps)
+        del copy
         tot["k6_block_plain"] += time_ms(
             torch, lambda: ref.pairwise_stats_rect_ref(blk, full),
             min(reps, 3))
@@ -1641,7 +1685,8 @@ def main():
             f"{tot_mesh['k6_block']:.4f} (bound "
             f"{tot_mesh['k6_block_bound']:.4f}) against K1 {tot['k1']:.4f}; "
             f"K6 1x1 on a copy of the stack (rectangular grid) "
-            f"{tot_mesh['k6_1x1_copy']:.4f}; "
+            f"{tot_mesh['k6_1x1_copy']:.4f}, on a copy of the block (no "
+            f"view path) {tot_mesh['k6_block_copy']:.4f}; "
             f"K7 int8 {tot_mesh['k7_1x1_int8']:.4f}, bf16 "
             f"{tot_mesh['k7_1x1_bf16']:.4f} against K5 {tot['k5_int8']:.4f}, "
             f"{tot['k5_bf16']:.4f}, on a block int8 "
@@ -1708,6 +1753,7 @@ def main():
          "replaces": "src/repro/kernels/pairwise_sqdist.py:221",
          "grid": f"rectangular (stats_rect.cuh): {MESH_W}-rank mesh, "
                  f"{-(-N // MESH_W)} of {-(-N // MESH_W) * MESH_W} rows",
+         "path": "view",
          "launches": counts_mesh["tree_block"],
          "max_abs_err": worst_rect["pairwise_stats_rect_block"],
          "ms": tot_mesh["k6_block"], "plain_ms": tot_mesh["k6_block_plain"],

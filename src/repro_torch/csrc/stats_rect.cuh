@@ -28,7 +28,20 @@
 // Scratch: (chunks, n_loc, n_full) cross partials, (chunks, n_loc) and
 // (chunks, n_full) self partials; never (chunks, n, n).  Rows past a
 // tile's end are exact zeros in registers.  All offsets are 64-bit.
+//
+// The view path (K6 only: an fp32 stack that fits one full tile, n_full
+// <= 16, and a block that is rows r0 .. r0 + n_loc of it, as on the mesh
+// path): slot k of the full tile holds stack row view_row(k), the block's
+// rows first, so each thread loads each stack row once a column and reads
+// the block's rows out of those registers (a compile-time slot), with no
+// local self products of their own: a local row's self product is the
+// full slot's, the same fmaf chain.  Slots past n_full repeat a real row
+// (no predicate in the loop); their products are never stored.  Its
+// finalize (rect_finalize_staged_kernel) forms rect_finalize_kernel's sums
+// with each thread's loads in flight together.
 #pragma once
+
+#include <cuda_pipeline.h>
 
 #include "stats_tile.cuh"
 
@@ -50,19 +63,29 @@ struct Rows {
   }
 };
 
+// The view path's slot order: slot k < n_loc holds the block's row r0 + k,
+// the other slots the stack's other rows in ascending order.
+__device__ __forceinline__ int64_t view_row(int64_t k, int64_t n_loc, int64_t r0) {
+  return k < n_loc ? r0 + k : (k < n_loc + r0 ? k - n_loc : k);
+}
+
 // One block: local rows i0..i0+RL against full rows j0..j0+RF over the
 // columns of chunk `chunk` (K1's blockIdx.x).  The block of the first full
 // tile writes the local rows' self products, the block of the first local
-// tile the full rows'.
-template <int RL, int RF, class Loc, class Full>
+// tile the full rows'.  AT >= 0: the view path (loc is full, a Rows<float>
+// stack of at most RF rows, the block rows r0 .. r0 + n_loc of it), the
+// local tile's rows in slots AT .. AT + RL of the full tile (AT == i0).
+template <int RL, int RF, int AT = -1, class Loc, class Full>
 __device__ void rect_pair(const Loc& loc, const Full& full,
                           float* __restrict__ part_g, float* __restrict__ part_l,
                           float* __restrict__ part_f, int64_t n_loc,
                           int64_t n_full, int64_t d, int64_t i0, int64_t j0,
                           int64_t chunk, int64_t chunks, bool local_norms,
-                          bool full_norms) {
+                          bool full_norms, int64_t r0 = 0) {
+  constexpr bool kView = AT >= 0;
   constexpr int kCross = RL * RF;
-  constexpr int kSlots = kCross + RL + RF;
+  constexpr int kLocal = kView ? 0 : RL;
+  constexpr int kSlots = kCross + kLocal + RF;
   float acc[kCross];
   float sl[RL];
   float sf[RF];
@@ -88,18 +111,43 @@ __device__ void rect_pair(const Loc& loc, const Full& full,
 
   const int64_t stride = chunks * (int64_t)kThreads;
   int64_t c = chunk * kThreads + threadIdx.x;
-  const auto e =
-      stats_tile::elements<RL, RF, false>(loc, full, i0, n_loc, j0, n_full, c, stride, step);
-  const auto& la = stats_tile::loader<0>(e, loc);
-  const auto& lb = stats_tile::loader<1>(e, full);
-  for (; c < d; c += stride) {
-    float a[RL];
-    float b[RF];
+  if constexpr (kView) {
+    const float* ptr[RF];
 #pragma unroll
-    for (int r = 0; r < RL; ++r) a[r] = (i0 + r < n_loc) ? la.load(i0 + r, c) : 0.0f;
+    for (int k = 0; k < RF; ++k) {
+      ptr[k] = full.x + view_row(k < n_full ? k : n_full - 1, n_loc, r0) * d + c;
+    }
+    for (; c < d; c += stride) {
+      float b[RF];
 #pragma unroll
-    for (int r = 0; r < RF; ++r) b[r] = (j0 + r < n_full) ? lb.load(j0 + r, c) : 0.0f;
-    step(a, b);
+      for (int k = 0; k < RF; ++k) {
+        b[k] = __ldg(ptr[k]);
+        ptr[k] += stride;
+      }
+#pragma unroll
+      for (int i = 0; i < RL; ++i) {
+        if (AT + i < RF) {  // past the tile: rows the block does not hold
+#pragma unroll
+          for (int k = 0; k < RF; ++k) acc[i * RF + k] = fmaf(b[AT + i], b[k], acc[i * RF + k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < RF; ++k) sf[k] = fmaf(b[k], b[k], sf[k]);
+    }
+  } else {
+    const auto e =
+        stats_tile::elements<RL, RF, false>(loc, full, i0, n_loc, j0, n_full, c, stride, step);
+    const auto& la = stats_tile::loader<0>(e, loc);
+    const auto& lb = stats_tile::loader<1>(e, full);
+    for (; c < d; c += stride) {
+      float a[RL];
+      float b[RF];
+#pragma unroll
+      for (int r = 0; r < RL; ++r) a[r] = (i0 + r < n_loc) ? la.load(i0 + r, c) : 0.0f;
+#pragma unroll
+      for (int r = 0; r < RF; ++r) b[r] = (j0 + r < n_full) ? lb.load(j0 + r, c) : 0.0f;
+      step(a, b);
+    }
   }
 
   __shared__ float red[kWarps][kSlots];
@@ -110,22 +158,39 @@ __device__ void rect_pair(const Loc& loc, const Full& full,
     const float v = warp_sum(acc[p]);
     if (lane == 0) red[warp][p] = v;
   }
+  if constexpr (!kView) {
 #pragma unroll
-  for (int r = 0; r < RL; ++r) {
-    const float v = warp_sum(sl[r]);
-    if (lane == 0) red[warp][kCross + r] = v;
+    for (int r = 0; r < RL; ++r) {
+      const float v = warp_sum(sl[r]);
+      if (lane == 0) red[warp][kCross + r] = v;
+    }
   }
 #pragma unroll
   for (int r = 0; r < RF; ++r) {
     const float v = warp_sum(sf[r]);
-    if (lane == 0) red[warp][kCross + RL + r] = v;
+    if (lane == 0) red[warp][kCross + kLocal + r] = v;
   }
   __syncthreads();
 
   for (int p = threadIdx.x; p < kSlots; p += kThreads) {
     float s = 0.0f;
     for (int w = 0; w < kWarps; ++w) s += red[w][p];
-    if (p < kCross) {
+    if constexpr (kView) {
+      // slot k to its stack row; the block's rows are slots 0 .. n_loc
+      if (p < kCross) {
+        const int64_t gi = i0 + p / RF;
+        const int64_t k = p % RF;
+        if (gi < n_loc && k < n_full) {
+          part_g[(chunk * n_loc + gi) * n_full + view_row(k, n_loc, r0)] = s;
+        }
+      } else {
+        const int64_t k = p - kCross;
+        if (full_norms && k < n_full) {
+          part_f[chunk * n_full + view_row(k, n_loc, r0)] = s;
+          if (k < n_loc) part_l[chunk * n_loc + k] = s;
+        }
+      }
+    } else if (p < kCross) {
       const int64_t gi = i0 + p / RF;
       const int64_t gj = j0 + p % RF;
       if (gi < n_loc && gj < n_full) part_g[(chunk * n_loc + gi) * n_full + gj] = s;
@@ -159,6 +224,28 @@ rect_gram_kernel(const Loc loc, const Full full, float* __restrict__ part_g,
                     I * RL, J * RF, blockIdx.y, chunks, J == 0, I == 0);
 }
 
+// The view path: one full tile (n_full <= RF), blockIdx.x the local tile I
+// (at most two: n_loc <= n_full <= RF), blockIdx.y the chunk.  Tile I's
+// rows sit in slots I * RL .. of the full tile, a compile-time offset, so
+// tile 1 is its own instantiation.  The launch bound is the rectangular
+// grid's.
+template <int RL, int RF>
+__global__ void __launch_bounds__(kThreads, RL * RF <= 48 ? 2 : 1)
+rect_view_kernel(const Rows<float> full, float* __restrict__ part_g,
+                 float* __restrict__ part_l, float* __restrict__ part_f,
+                 int64_t n_loc, int64_t n_full, int64_t d, int64_t chunks,
+                 int64_t r0) {
+  if constexpr (RL < RF) {
+    if (blockIdx.x == 1) {
+      rect_pair<RL, RF, RL>(full, full, part_g, part_l, part_f, n_loc, n_full, d,
+                            RL, 0, blockIdx.y, chunks, true, false, r0);
+      return;
+    }
+  }
+  rect_pair<RL, RF, 0>(full, full, part_g, part_l, part_f, n_loc, n_full, d, 0,
+                       0, blockIdx.y, chunks, true, true, r0);
+}
+
 // dists[i, j] = (sl_i + sf_j) - 2 g_ij with every sum over chunks in chunk
 // order (K1's finalize_kernel on one row block); norms[j] = sf_j.
 __global__ void rect_finalize_kernel(const float* __restrict__ part_g,
@@ -181,6 +268,76 @@ __global__ void rect_finalize_kernel(const float* __restrict__ part_g,
   if (i == 0) norms[j] = sj;
 }
 
+// rect_finalize_kernel's sums in the same order, for the view path: that
+// kernel's chunk loop waits on each chunk's three loads in turn (1056
+// times on the main path's leaves, one thread a cell).  Here each thread
+// copies kSeg chunks' values of its cell to shared memory with cp.async,
+// all in flight at once, then sums them in chunk order.  A template:
+// compiled only where it is launched.
+constexpr int kFinalizeThreads = 64;
+
+template <int kSeg>
+__global__ void __launch_bounds__(kFinalizeThreads)
+rect_finalize_staged_kernel(const float* __restrict__ part_g,
+                            const float* __restrict__ part_l,
+                            const float* __restrict__ part_f,
+                            float* __restrict__ dists, float* __restrict__ norms,
+                            int64_t n_loc, int64_t n_full, int64_t chunks) {
+  __shared__ float stage[3][kSeg][kFinalizeThreads];
+  const int t = threadIdx.x;
+  const int64_t cells = n_loc * n_full;
+  const int64_t idx = (int64_t)blockIdx.x * kFinalizeThreads + t;
+  if (idx >= cells) return;
+  const int64_t i = idx / n_full;
+  const int64_t j = idx % n_full;
+  float g = 0.0f, si = 0.0f, sj = 0.0f;
+  for (int64_t c0 = 0; c0 < chunks; c0 += kSeg) {
+    const int m = (int)(chunks - c0 < kSeg ? chunks - c0 : kSeg);
+    for (int u = 0; u < m; ++u) {
+      __pipeline_memcpy_async(&stage[0][u][t], part_g + (c0 + u) * cells + idx, 4);
+      __pipeline_memcpy_async(&stage[1][u][t], part_l + (c0 + u) * n_loc + i, 4);
+      __pipeline_memcpy_async(&stage[2][u][t], part_f + (c0 + u) * n_full + j, 4);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    for (int u = 0; u < m; ++u) {
+      g = __fadd_rn(g, stage[0][u][t]);
+      si = __fadd_rn(si, stage[1][u][t]);
+      sj = __fadd_rn(sj, stage[2][u][t]);
+    }
+  }
+  dists[idx] = __fsub_rn(__fadd_rn(si, sj), __fmul_rn(2.0f, g));
+  if (i == 0) norms[j] = sj;
+}
+
+// The (tile_loc, tile_full) pairs the kernels are compiled for: calls
+// launch(Tile<RL, RF>{}) for the pair asked for; false for any other.
+template <int RL, int RF>
+struct Tile {
+  static constexpr int kLocal = RL;
+  static constexpr int kFull = RF;
+};
+
+template <class Launch>
+bool with_tile(int64_t tile_loc, int64_t tile_full, Launch&& launch) {
+  if (tile_loc == 4 && tile_full == 8) {
+    launch(Tile<4, 8>{});
+  } else if (tile_loc == 4 && tile_full == 12) {
+    launch(Tile<4, 12>{});
+  } else if (tile_loc == 4 && tile_full == 16) {
+    launch(Tile<4, 16>{});
+  } else if (tile_loc == 8 && tile_full == 8) {
+    launch(Tile<8, 8>{});
+  } else if (tile_loc == 8 && tile_full == 12) {
+    launch(Tile<8, 12>{});
+  } else if (tile_loc == 8 && tile_full == 16) {
+    launch(Tile<8, 16>{});
+  } else {
+    return false;
+  }
+  return true;
+}
+
 // Both kernels on `s`.  part_g: (chunks, n_loc, n_full), part_l: (chunks,
 // n_loc), part_f: (chunks, n_full) fp32 scratch; dists: (n_loc, n_full);
 // norms: (n_full,).  tile_loc is 4 or 8, tile_full 8, 12 or 16.  Returns
@@ -200,30 +357,51 @@ int launch_rect(const Loc& loc, const Full& full, void* part_g, void* part_l,
   float* pg = (float*)part_g;
   float* pl = (float*)part_l;
   float* pf = (float*)part_f;
-#define STATS_RECT_LAUNCH(RL, RF)                                           \
-  rect_gram_kernel<RL, RF><<<grid, kThreads, 0, s>>>(loc, full, pg, pl, pf, \
-                                                     n_loc, n_full, d, chunks)
-  if (tile_loc == 4 && tile_full == 8) {
-    STATS_RECT_LAUNCH(4, 8);
-  } else if (tile_loc == 4 && tile_full == 12) {
-    STATS_RECT_LAUNCH(4, 12);
-  } else if (tile_loc == 4 && tile_full == 16) {
-    STATS_RECT_LAUNCH(4, 16);
-  } else if (tile_loc == 8 && tile_full == 8) {
-    STATS_RECT_LAUNCH(8, 8);
-  } else if (tile_loc == 8 && tile_full == 12) {
-    STATS_RECT_LAUNCH(8, 12);
-  } else if (tile_loc == 8 && tile_full == 16) {
-    STATS_RECT_LAUNCH(8, 16);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef STATS_RECT_LAUNCH
+  const bool known = with_tile(tile_loc, tile_full, [&](auto t) {
+    using T = decltype(t);
+    rect_gram_kernel<T::kLocal, T::kFull><<<grid, kThreads, 0, s>>>(
+        loc, full, pg, pl, pf, n_loc, n_full, d, chunks);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t cells = n_loc * n_full;
   const int threads = 256;
   rect_finalize_kernel<<<(unsigned)((cells + threads - 1) / threads), threads, 0, s>>>(
+      pg, pl, pf, (float*)dists, (float*)norms, n_loc, n_full, chunks);
+  return (int)cudaGetLastError();
+}
+
+// The view path's kernels on `s`: the block is rows r0 .. r0 + n_loc of the
+// fp32 stack `full`, which fits one full tile (n_full <= tile_full).
+// Scratch, outputs and tiles as for launch_rect.  A template, so that only
+// the sources that launch the view path compile its kernels.
+template <class Full>
+int launch_rect_view(const Full& full, void* part_g, void* part_l, void* part_f,
+                     void* dists, void* norms, int64_t n_loc, int64_t n_full,
+                     int64_t d, int64_t chunks, int64_t tile_loc,
+                     int64_t tile_full, int64_t r0, cudaStream_t s) {
+  const int64_t tiles_loc = (n_loc + tile_loc - 1) / tile_loc;
+  if (n_loc <= 0 || n_full <= 0 || n_full > tile_full || r0 < 0 ||
+      r0 + n_loc > n_full || tiles_loc > 2 || d <= 0 || chunks <= 0 ||
+      chunks > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dim3 grid((unsigned)tiles_loc, (unsigned)chunks);
+  float* pg = (float*)part_g;
+  float* pl = (float*)part_l;
+  float* pf = (float*)part_f;
+  const bool known = with_tile(tile_loc, tile_full, [&](auto t) {
+    using T = decltype(t);
+    rect_view_kernel<T::kLocal, T::kFull><<<grid, kThreads, 0, s>>>(
+        full, pg, pl, pf, n_loc, n_full, d, chunks, r0);
+  });
+  if (!known) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks =
+      (unsigned)((n_loc * n_full + kFinalizeThreads - 1) / kFinalizeThreads);
+  rect_finalize_staged_kernel<32><<<blocks, kFinalizeThreads, 0, s>>>(
       pg, pl, pf, (float*)dists, (float*)norms, n_loc, n_full, chunks);
   return (int)cudaGetLastError();
 }

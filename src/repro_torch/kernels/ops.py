@@ -67,8 +67,11 @@ def pairwise_stats_rect(x_loc: torch.Tensor, x_full: torch.Tensor, *,
     ``x_full`` itself (one tensor, same shape, no padding rows: a one-rank
     mesh) the kernel runs K1's symmetric grid, each product once; any
     other block, a copy of the whole stack included, runs the rectangular
-    grid, each product of the block formed separately.  Both give the same
-    bits; :func:`square_launch_counts` says which ran."""
+    grid, each product of the block formed separately (a block that is
+    rows of a stack of at most 16 rows, as on a mesh, loads each stack row
+    once: the view path).  All give the same bits;
+    :func:`square_launch_counts` and :func:`view_launch_counts` say which
+    ran."""
     check_rect_args(x_loc, x_full, n)
     if x_full.device.type == "cpu":
         return ref.pairwise_stats_rect_ref(x_loc, x_full)
@@ -129,6 +132,14 @@ def square_launch_counts() -> Dict[str, int]:
             if hasattr(fn, "square_launches")}
 
 
+def view_launch_counts() -> Dict[str, int]:
+    """Of the K6 launches in :func:`launch_counts`, those that ran the
+    rectangular grid's view path because the block was rows of a stack of
+    at most 16 rows."""
+    return {name: fn.view_launches for name, fn in _WRAPPERS.items()
+            if hasattr(fn, "view_launches")}
+
+
 def fused_select_variant_counts() -> Dict[str, int]:
     """Of the K2 launches in :func:`launch_counts`, those of each kernel
     variant: ``"theta=<θ>"`` (compiled for that θ) or ``"theta<=32"``."""
@@ -140,4 +151,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "square_launches"):
             fn.square_launches = 0
+        if hasattr(fn, "view_launches"):
+            fn.view_launches = 0
     fused_select_cuda.variant_launches.clear()

@@ -8,7 +8,10 @@
 * K6 (``csrc/pairwise_stats_rect.cu``) replaces ``pairwise_stats_rect_pallas``:
   one mesh rank's (n_loc, d) row block against the gathered (n, d) stack
   -> the raw (n_loc, n) block and the (n,) norms, equal to K1's matching
-  rows bit for bit.  Plain version: ``ref.pairwise_stats_rect_ref``.
+  rows bit for bit, on K1's symmetric grid when the block is the stack,
+  else on the rectangular grid, whose view path serves a block that is a
+  view of a stack of at most 16 rows.  Plain version:
+  ``ref.pairwise_stats_rect_ref``.
 * K4 (``csrc/pairwise_sqdist.cu``) replaces ``pairwise_sqdist_pallas``: the
   finalised (n, n) distances of an fp32 or bf16 stack, equal to
   ``core.api.finalize_dists`` of K1's raw output bit for bit.  Plain
@@ -95,7 +98,7 @@ pairwise_stats_cuda.launches = 0
 @functools.lru_cache(maxsize=None)
 def _rect_launch_fn():
     fn = build.library("pairwise_stats_rect").pairwise_stats_rect_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -169,6 +172,40 @@ def is_whole(part: torch.Tensor, whole: torch.Tensor, n: int) -> bool:
         part.shape == whole.shape and whole.shape[0] == n
 
 
+def view_row(part: torch.Tensor, whole: torch.Tensor) -> Optional[int]:
+    """The row offset r0 when ``part`` is rows [r0, r0 + n_loc) of ``whole``
+    (the same memory: a mesh rank's block of the gathered stack), else
+    None.  Both must be contiguous (n, d) fp32 tensors of one storage on
+    one device, ``part`` a whole number of rows into ``whole`` and inside
+    it.  A copy, a column slice, a non-contiguous block, a start between
+    rows or rows outside ``whole`` give None."""
+    if part.ndim != 2 or whole.ndim != 2 or part.shape[1] != whole.shape[1] \
+            or part.dtype != torch.float32 or whole.dtype != torch.float32 \
+            or part.device != whole.device or not part.is_contiguous() \
+            or not whole.is_contiguous() or part.shape[1] == 0:
+        return None
+    if part.untyped_storage().data_ptr() != \
+            whole.untyped_storage().data_ptr():
+        return None
+    offset = part.data_ptr() - whole.data_ptr()
+    row_bytes = 4 * whole.shape[1]
+    if offset < 0 or offset % row_bytes:
+        return None
+    r0 = offset // row_bytes
+    return r0 if r0 + part.shape[0] <= whole.shape[0] else None
+
+
+def rect_view_arg(x_loc: torch.Tensor, x_full: torch.Tensor, tiles) -> int:
+    """K6's ``view_row`` argument for ``rect_scratch``'s ``tiles``: the
+    block's row offset when the view path runs (not the symmetric grid,
+    the stack within one full tile, the block a view of it), else -1."""
+    square_tile, tile_full = tiles[2], tiles[1]
+    if square_tile > 0 or x_full.shape[0] > tile_full:
+        return -1
+    r0 = view_row(x_loc, x_full)
+    return -1 if r0 is None else r0
+
+
 def pairwise_stats_rect_cuda(x_loc: torch.Tensor, x_full: torch.Tensor, *,
                              n: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,25 +226,30 @@ def pairwise_stats_rect_cuda(x_loc: torch.Tensor, x_full: torch.Tensor, *,
     square = is_whole(x_loc, x_full, n)
     chunks, tiles, scratch, (dists, norms) = rect_scratch(
         x_loc, x_full, n, square)
+    r0 = rect_view_arg(x_loc, x_full, tiles)
     (n_loc, d), n_full = x_loc.shape, x_full.shape[0]
     fn = _rect_launch_fn()
     with torch.cuda.device(x_full.device):
         stream = torch.cuda.current_stream(x_full.device).cuda_stream
         err = fn(x_loc.data_ptr(), x_full.data_ptr(),
                  *(data_ptr(t) for t in scratch), dists.data_ptr(),
-                 norms.data_ptr(), n_loc, n_full, d, chunks, *tiles, stream)
+                 norms.data_ptr(), n_loc, n_full, d, chunks, *tiles, r0,
+                 stream)
     if err != 0:
         raise RuntimeError(f"pairwise_stats_rect kernel launch failed "
                            f"(cudaError {err}) for {tuple(x_loc.shape)} x "
                            f"{tuple(x_full.shape)}")
     pairwise_stats_rect_cuda.launches += 1
     pairwise_stats_rect_cuda.square_launches += square
+    pairwise_stats_rect_cuda.view_launches += r0 >= 0
     return dists, norms
 
 
 pairwise_stats_rect_cuda.launches = 0
 #: of those launches, the ones that ran K1's symmetric grid (is_whole)
 pairwise_stats_rect_cuda.square_launches = 0
+#: and the ones that ran the rectangular grid's view path (rect_view_arg)
+pairwise_stats_rect_cuda.view_launches = 0
 
 #: stack types K4 reads, by the code its C entry point takes
 SQDIST_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}

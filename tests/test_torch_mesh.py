@@ -48,7 +48,8 @@ from repro_torch.kernels.dequant_stats import dequant_stats_rect_cuda
 from repro_torch.kernels.pairwise_sqdist import (is_whole, launch_config,
                                                  pairwise_sqdist_cuda,
                                                  pairwise_stats_rect_cuda,
-                                                 rect_scratch, rect_tiles)
+                                                 rect_scratch, rect_tiles,
+                                                 rect_view_arg, view_row)
 from repro_torch.launch.mesh import data_parallel_size, host_mesh_shape
 
 torch.set_num_threads(1)
@@ -440,12 +441,14 @@ def test_mesh_stats_need_a_row_block():
 EDGE = [(3, 1), (11, 100), (13, 257), (17, 2000)]
 
 
-def _x(n, d, seed, inf_rows=()):
+def _x(n, d, seed, inf_rows=(), nan_rows=()):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, d)).astype(np.float32)
     x[: max(1, n // 5)] *= 20.0
     for r in inf_rows:
         x[r, ::3] = np.inf
+    for r in nan_rows:
+        x[r, d // 2] = np.nan
     return x
 
 
@@ -631,6 +634,51 @@ def test_rect_scratch_is_the_block_and_no_more(square):
         assert [t.shape for t in scratch[1:]] == [(chunks, n_loc),
                                                   (chunks, n_full)]
     assert dists.shape == (n_loc, n_full) and norms.shape == (n_full,)
+    # the C entry's view_row: the block's row offset on the rectangular
+    # grid (it is rows 3..6 of a 12-row stack), -1 on the symmetric grid
+    assert rect_view_arg(blk, full, tiles) == (-1 if square else 3)
+    assert rect_view_arg(blk.clone(), full, tiles) == -1
+
+
+@pytest.mark.parametrize("n_full,rows,want", [
+    (12, (3, 6), 3), (12, (0, 12), 0), (16, (12, 16), 12), (9, (6, 9), 6),
+    (17, (0, 5), -1), (24, (6, 12), -1)])
+def test_rect_view_arg_takes_the_view_path_within_one_full_tile(n_full, rows,
+                                                                want):
+    """K6's view path runs for a block that is rows of a stack of at most
+    16 rows (one full tile), whatever the block's offset or size; a larger
+    stack (8-row full tiles) keeps the rectangular grid's pairs."""
+    full = torch.zeros((n_full, 300))
+    blk = full[rows[0]:rows[1]]
+    n = n_full - 1          # a padding row: never the symmetric grid
+    tiles = rect_scratch(blk, full, n, False)[1]
+    assert rect_view_arg(blk, full, tiles) == want
+
+
+@pytest.mark.parametrize("case,want", [
+    ("rank 0", 0), ("rank 1", 3), ("rank 2", 6), ("rank 3", 9),
+    ("the stack", 0), ("copy", None), ("column slice", None),
+    ("starts before the stack", None), ("rows past the end", None),
+    ("non-contiguous", None), ("between rows", None), ("int32 view", None)])
+def test_view_row_finds_the_block_in_the_stack(case, want):
+    """``view_row`` gives r0 only for rows [r0, r0 + n_loc) of the stack's
+    own memory: each rank's block of a 12-row padded stack (that lies
+    inside a larger buffer) and the stack itself; never a copy, a column
+    slice, memory before or after the stack, a strided block, a start
+    between two rows or another dtype over the same bytes."""
+    big = torch.zeros((20, 64))
+    full = big[4:16]
+    part = {"rank 0": lambda: full[0:3], "rank 1": lambda: full[3:6],
+            "rank 2": lambda: full[6:9], "rank 3": lambda: full[9:12],
+            "the stack": lambda: full, "copy": lambda: full[3:6].clone(),
+            "column slice": lambda: full[3:6, :32],
+            "starts before the stack": lambda: big[2:5],
+            "rows past the end": lambda: big[14:17],
+            "non-contiguous": lambda: full[0:6:2],
+            "between rows": lambda: big.view(-1)[4 * 64 + 7:
+                                                  7 * 64 + 7].view(3, 64),
+            "int32 view": lambda: full.view(torch.int32)[3:6]}[case]()
+    assert view_row(part, full) == want
 
 
 @pytest.mark.parametrize("case,want", [
@@ -649,11 +697,14 @@ def test_is_whole_means_the_same_memory_without_padding(case, want):
 def test_reset_clears_square_launch_counts():
     pairwise_stats_rect_cuda.square_launches = 3
     dequant_stats_rect_cuda.square_launches = 2
+    pairwise_stats_rect_cuda.view_launches = 4
     assert ops.square_launch_counts() == {"pairwise_stats_rect": 3,
                                           "dequant_stats_rect": 2}
+    assert ops.view_launch_counts() == {"pairwise_stats_rect": 4}
     ops.reset_launch_counts()
     assert ops.square_launch_counts() == {"pairwise_stats_rect": 0,
                                           "dequant_stats_rect": 0}
+    assert ops.view_launch_counts() == {"pairwise_stats_rect": 0}
 
 
 # ======================================================== on the card
@@ -672,37 +723,75 @@ def _padded(x, W):
     return full, blocks
 
 
+def _k6_launch(blk, full, n):
+    """K6 on one block: ((raw block, norms), symmetric-grid launches,
+    view-path launches) of that launch."""
+    sq, vw = (pairwise_stats_rect_cuda.square_launches,
+              pairwise_stats_rect_cuda.view_launches)
+    out = pairwise_stats_rect_cuda(blk, full, n=n)
+    return (out, pairwise_stats_rect_cuda.square_launches - sq,
+            pairwise_stats_rect_cuda.view_launches - vw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("inf", [False, True])
-@pytest.mark.parametrize("d", [1, 4095, 100_003])
-@pytest.mark.parametrize("W", [1, 2, 4, 8])
-@pytest.mark.parametrize("n", [11, 12, 13, 23, 37])
+@pytest.mark.parametrize("d", [1, 255, 257, 4095, 100_003])
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("n", [7, 11, 12, 13, 15, 16, 23, 37])
 def test_k6_rows_equal_k1_rows_on_card(card, n, W, d, inf):
     """Every rank's block of K6 (a view of the padded stack, K1's chunk
     count for the true n; at W = 1 the stack itself, on K1's symmetric
-    grid, and a copy, on the rectangular one) is K1's matching rows bit
-    for bit, NaN and inf in the same places, and within 1e-5 of its plain
-    version; the grid that ran is the one the block's memory selects."""
+    grid) and a copy of it (the rectangular grid, no view path) is K1's
+    matching rows bit for bit, NaN and inf in the same places, and within
+    1e-5 of its plain version.  The view and the copy give the same bits
+    on the whole (n_loc, n_pad) block and norms, padding columns included.
+    The grid and path that ran are the ones the block's memory selects:
+    the view path for every block of a W > 1 mesh whose padded stack fits
+    one full tile (at most 16 rows), never for a copy."""
     from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
     x = torch.from_numpy(_x(n, d, seed=n * W + d,
-                            inf_rows=(0,) if inf else ())).to(card)
+                            inf_rows=(0,) if inf else (),
+                            nan_rows=(n - 1,) if inf else ())).to(card)
     k1_d, k1_s = pairwise_stats_cuda(x)
     full, blocks = _padded(x, W)
-    views = [(a, b, full[a:b]) for a, b in blocks]
-    if W == 1:          # a copy of the whole stack: the rectangular grid
-        views.append((0, n, full.clone()))
-    for i, (a, b, blk) in enumerate(views):
-        before = pairwise_stats_rect_cuda.square_launches
-        got_d, got_s = pairwise_stats_rect_cuda(blk, full, n=n)
-        want_d, want_s = ref.pairwise_stats_rect_ref(blk, full)
+    for a, b in blocks:
+        (got_d, got_s), square, view = _k6_launch(full[a:b], full, n)
+        (copy_d, copy_s), c_square, c_view = _k6_launch(full[a:b].clone(),
+                                                        full, n)
+        want_d, want_s = ref.pairwise_stats_rect_ref(full[a:b], full)
         torch.cuda.synchronize()
-        assert pairwise_stats_rect_cuda.square_launches - before == \
-            (W == 1 and i == 0)
+        assert (square, view) == (W == 1, W > 1 and full.shape[0] <= 16)
+        assert (c_square, c_view) == (0, 0)
+        assert _same(got_d, copy_d) and _same(got_s, copy_s)
         rows = min(b, n) - a
         if rows > 0:
             assert _same(got_d[:rows, :n], k1_d[a:a + rows])
         assert _same(got_s[:n], k1_s)
         _close(_np(got_d[:rows, :n]), _np(want_d[:rows, :n]), _np(want_s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(0, 16), (0, 12), (2, 14), (4, 16), (9, 16)])
+@pytest.mark.parametrize("d", [1, 4095, 100_003])
+def test_k6_view_past_one_local_tile_on_card(card, d, rows):
+    """Blocks of more than one local tile (n_loc > 8) of a 16-row stack with
+    a padding row (n = 15): the view path's second local tile reads its
+    rows from slots 8.. of the full tile.  Each equals its copy and K1's
+    rows bit for bit."""
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
+    n = 15
+    x = torch.from_numpy(_x(n, d, seed=d + rows[0], inf_rows=(3,),
+                            nan_rows=(11,))).to(card)
+    k1_d, k1_s = pairwise_stats_cuda(x)
+    full, _ = _padded(x, 16)
+    a, b = rows
+    (got_d, got_s), square, view = _k6_launch(full[a:b], full, n)
+    (copy_d, copy_s), _, c_view = _k6_launch(full[a:b].clone(), full, n)
+    torch.cuda.synchronize()
+    assert (square, view, c_view) == (0, 1, 0)
+    assert _same(got_d, copy_d) and _same(got_s, copy_s)
+    assert _same(got_d[:min(b, n) - a, :n], k1_d[a:min(b, n)])
+    assert _same(got_s[:n], k1_s)
 
 
 @pytest.mark.cuda

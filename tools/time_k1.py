@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time K1 (``pairwise_stats``), K2 (``fused_select``), K3
-(``coord_select``), K5 (``dequant_stats``) or K7 (``dequant_stats_rect``)
-of several checkouts of the port on one card.
+(``coord_select``), K5 (``dequant_stats``), K6 (``pairwise_stats_rect``)
+or K7 (``dequant_stats_rect``) of several checkouts of the port on one
+card.
 
-    python3 tools/time_k1.py SRC_A SRC_B [--kernel k1|k2|k3|k5|k7]
+    python3 tools/time_k1.py SRC_A SRC_B [--kernel k1|k2|k3|k5|k6|k7]
                              [--dtype int8|bf16] [--grid square|block]
-                             [--order ABBA] [--reps 5] [--n 11] [--f 2]
+                             [--copy] [--profile] [--order ABBA]
+                             [--reps 5] [--n 11] [--f 2]
 
 Each ``SRC`` is the ``src`` directory of a checkout of this repository
 (for example a ``git archive`` of an earlier commit unpacked beside this
@@ -23,14 +25,19 @@ n - 2f - 2, beta = theta - 2f); K3 takes that plan's theta and beta on
 of the stack would not fit beside the stack at theta = 32).  K5 and K7
 take the leaf's wire payload in ``--dtype``: the QSGD int8 (``qsgd:bits=8``)
 or the bf16 form, with its per-row multipliers (QSGD's scales, bf16's
-ones) and row 0's negated, as a ``scale_poison`` row sends it.  K7's
-``--grid square`` is the whole payload as the block (a one-rank mesh: K5's
-symmetric grid); ``--grid block`` pads the payload to 4 ranks' rows with
-zero rows and multipliers (n_loc = 3 of 12 at n = 11, as in
-``chip_smoke.py``'s mesh phase), times rank 1's block (the rectangular
-grid) and hashes every rank's.  It also prints a hash of the kernel's
-outputs over every leaf, so that two versions that should agree bit for
-bit can be seen to.
+ones) and row 0's negated, as a ``scale_poison`` row sends it.  K6 and
+K7 take ``--grid``: ``square`` is the whole stack (payload) as the block
+(a one-rank mesh: K1's / K5's symmetric grid); ``block`` pads it to 4
+ranks' rows with zero rows (and multipliers; n_loc = 3 of 12 at n = 11,
+as in ``chip_smoke.py``'s mesh phase), times rank 1's block (the
+rectangular grid; K6 on a view of the padded stack, its view path) and
+hashes every rank's.  K6's ``--copy`` makes each block a copy (the
+rectangular grid without the view path): the same bits, so the same
+hash.  It also prints a hash of the kernel's outputs over every leaf, so
+that two versions that should agree bit for bit can be seen to.
+``--profile`` adds one more pass over the leaves under ``torch.profiler``
+and reports the device time of each CUDA kernel it launched, summed over
+the leaves (``"profile"``: {kernel name: ms}).
 
 The card's name and power limit come first; the last line is one JSON
 object with every run and, per checkout, the median over its runs.
@@ -71,21 +78,42 @@ def wire_payload(torch, x, dtype, seed):
     return p.contiguous(), mult
 
 
-def padded_blocks(torch, p, mult, ranks=4):
-    """The payload and multipliers padded with zero rows to ``ranks``
-    blocks of n_loc rows, and the blocks (views)."""
-    n = p.shape[0]
-    n_loc = -(-n // ranks)
-    pf = torch.zeros((n_loc * ranks, p.shape[1]), dtype=p.dtype,
-                     device=p.device)
-    pf[:n] = p
-    mf = torch.zeros((n_loc * ranks,), dtype=torch.float32, device=p.device)
-    mf[:n] = mult
-    return pf, mf, [(pf[r * n_loc:(r + 1) * n_loc],
-                     mf[r * n_loc:(r + 1) * n_loc]) for r in range(ranks)]
+def padded(torch, x, ranks=4):
+    """``x`` with zero rows appended to ``ranks`` blocks of n_loc rows
+    (``chip_smoke.py``'s ``padded``), and n_loc."""
+    n_loc = -(-x.shape[0] // ranks)
+    full = x.new_zeros((n_loc * ranks,) + tuple(x.shape[1:]))
+    full[:x.shape[0]] = x
+    return full, n_loc
 
 
-def child(src, kernel, reps, n, f, dtype, grid):
+def padded_blocks(torch, *tensors, ranks=4, copy=False):
+    """Each tensor padded to ``ranks`` blocks of rows, and the blocks: for
+    each rank the tuple of its rows of every padded tensor (views, or
+    copies with ``copy``)."""
+    fulls = [padded(torch, t, ranks)[0] for t in tensors]
+    n_loc = fulls[0].shape[0] // ranks
+    cut = (lambda t: t.clone()) if copy else (lambda t: t)
+    return fulls, [tuple(cut(f[r * n_loc:(r + 1) * n_loc]) for f in fulls)
+                   for r in range(ranks)]
+
+
+def device_ms(torch, fn):
+    """{kernel name: device ms} of the CUDA kernels ``fn()`` launches,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def child(src, kernel, reps, n, f, dtype, grid, copy, profile):
     sys.path.insert(0, src)
     import dataclasses
 
@@ -108,6 +136,10 @@ def child(src, kernel, reps, n, f, dtype, grid):
         from repro_torch.kernels.dequant_stats import (
             dequant_stats_cuda, dequant_stats_rect_cuda)
         names += ("dequant_stats", "dequant_stats_rect")
+    if kernel == "k6":
+        from repro_torch.kernels.pairwise_sqdist import \
+            pairwise_stats_rect_cuda
+        names += ("pairwise_stats_rect",)
     build.build(names)
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
     params = MD.init_model(cfg, seed=0, device="cuda")
@@ -130,6 +162,7 @@ def child(src, kernel, reps, n, f, dtype, grid):
         return g[:theta], g[theta:]
 
     hashed = None       # what is hashed, when it is not what is timed
+    blocks = None       # --grid block: the padded inputs and every rank's
 
     if kernel == "k1":
         def fn(x):
@@ -143,22 +176,35 @@ def child(src, kernel, reps, n, f, dtype, grid):
     elif kernel == "k5":
         def fn(p, mult):
             return dequant_stats_cuda(p, mult)
+    elif kernel == "k6" and grid == "square":
+        def fn(x):
+            return pairwise_stats_rect_cuda(x, x, n=n)
+    elif kernel == "k6":
+        def fn(x):
+            return pairwise_stats_rect_cuda(*blocks[1][1], *blocks[0], n=n)
+
+        def hashed(x):
+            return [t for b in blocks[1] for t in
+                    pairwise_stats_rect_cuda(*b, *blocks[0], n=n)]
     elif grid == "square":
         def fn(p, mult):
             return dequant_stats_rect_cuda(p, mult, p, mult, n=n)
     else:
         def fn(p, mult):
-            return dequant_stats_rect_cuda(*blocks[1], pf, mf, n=n)
+            pf, mf = blocks[0]
+            return dequant_stats_rect_cuda(*blocks[1][1], pf, mf, n=n)
 
         def hashed(p, mult):
-            return [t for b in blocks for t in dequant_stats_rect_cuda(
+            pf, mf = blocks[0]
+            return [t for b in blocks[1] for t in dequant_stats_rect_cuda(
                 *b, pf, mf, n=n)]
     digest = hashlib.sha256()
     total = 0.0
+    per_kernel = {}
     for i, m in enumerate(numels):
         args = inputs(i, m)
-        if kernel == "k7" and grid == "block":
-            pf, mf, blocks = padded_blocks(torch, *args)
+        if kernel in ("k6", "k7") and grid == "block":
+            blocks = padded_blocks(torch, *args, copy=copy)
         for out in (hashed or fn)(*args):
             digest.update(out.cpu().numpy().tobytes())
         times = []
@@ -171,24 +217,32 @@ def child(src, kernel, reps, n, f, dtype, grid):
             b.synchronize()
             times.append(a.elapsed_time(b))
         total += statistics.median(times)
+        if profile:
+            for name, ms in device_ms(torch, lambda: fn(*args)).items():
+                per_kernel[name] = per_kernel.get(name, 0.0) + ms
         del args
-        if kernel == "k7" and grid == "block":
-            del pf, mf, blocks
+        blocks = None
     print(json.dumps({"src": src, "kernel": kernel, "ms": total,
                       "leaves": len(numels), "n": n, "theta": theta,
                       "beta": plan.beta, "dtype": dtype, "grid": grid,
-                      "sha256": digest.hexdigest()}), flush=True)
+                      "copy": copy, "sha256": digest.hexdigest(),
+                      **({"profile": per_kernel} if profile else {})}),
+          flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("srcs", nargs="+")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k5", "k7"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k5", "k6", "k7"),
                     default="k1")
     ap.add_argument("--dtype", choices=("int8", "bf16"), default="int8",
                     help="K5 / K7: the wire payload's type")
     ap.add_argument("--grid", choices=("square", "block"), default="square",
-                    help="K7: the whole payload, or rank 1 of 4 blocks")
+                    help="K6 / K7: the whole stack, or rank 1 of 4 blocks")
+    ap.add_argument("--copy", action="store_true",
+                    help="K6 --grid block: copies of the blocks, not views")
+    ap.add_argument("--profile", action="store_true",
+                    help="device ms of each kernel launched, by name")
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--n", type=int, default=N)
@@ -197,7 +251,7 @@ def main():
     args = ap.parse_args()
     if args.child:
         child(args.srcs[0], args.kernel, args.reps, args.n, args.f,
-              args.dtype, args.grid)
+              args.dtype, args.grid, args.copy, args.profile)
         return 0
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -210,7 +264,9 @@ def main():
                               "--child", "--kernel", args.kernel, "--reps",
                               str(args.reps), "--n", str(args.n), "--f",
                               str(args.f), "--dtype", args.dtype, "--grid",
-                              args.grid, src],
+                              args.grid, *(["--copy"] if args.copy else []),
+                              *(["--profile"] if args.profile else []),
+                              src],
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, flush=True)
@@ -224,6 +280,7 @@ def main():
         per.setdefault(run["label"], []).append(run["ms"])
     print(json.dumps({"runs": runs, "kernel": args.kernel, "n": args.n,
                       "f": args.f, "dtype": args.dtype, "grid": args.grid,
+                      "copy": args.copy,
                       "median_ms": {
         k: statistics.median(v) for k, v in per.items()},
         "same_outputs": len({r["sha256"] for r in runs}) == 1}), flush=True)
