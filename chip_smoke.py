@@ -67,6 +67,21 @@ Phases; any failure exits non-zero and no result line is printed:
    configuration with the ``inf`` attack, 3 steps: finite losses, finite
    honest momentum rows, the byzantine mass printed (not gated), and per
    step K1 2 x 14 times, K2 14 times, K3 and K5 never;
+   After it, the phases of the rest of the single-device trainer, each
+   with K1 and K2 once per leaf per step on the theta = 5 kernel and no
+   other kernel: adaptive A, ``--attack adaptive_lie`` at the training
+   configuration (z after each step recomputed on the host in fp32 from
+   the step's recorded selection, exactly); adaptive B, ``--attack
+   adaptive_mimic`` for 2 steps at 1 layer (trust within 1e-6 of its EMA
+   recomputed from the selection; the copied row logged); the checkpoint:
+   adaptive A at 1 layer, 2 steps, ``save`` and ``restore`` onto the card
+   (every leaf, ``opt.step`` and ``astate`` bit for bit; the file's bytes
+   and the seconds printed beside the card), then step 3 from the
+   restored and from the in-memory state (the same losses and selection,
+   the parameters within 1e-6 relative); and ``examples/
+   quickstart_torch.py`` (multi-Bulyan's cosine above 0.9, 8 finite
+   losses).  The byzantine mass of the adaptive attacks is logged, not
+   gated: they are built to be selected;
 11. timing at the main path's leaf shapes (one launch per leaf, summed over
    the leaves of one step; median of repeats, CUDA events), K5 on int8
    and bf16 payloads beside decode + K1, each payload also checked as in
@@ -75,8 +90,8 @@ Phases; any failure exits non-zero and no result line is printed:
    and the whole two-step apply beside K2; K2 over the timed leaves for
    every (theta, beta) of the sweep of phase 3, each leaf bit for bit its
    plain version;
-12. profile: one more steady-state step of the uncompressed configuration
-   and one of wire A under ``torch.profiler``: device-busy share and the
+12. profile: one more steady-state step of the uncompressed configuration,
+   one of wire A and one of adaptive A under ``torch.profiler``: device-busy share and the
    kernels that take the most device time; and (in phase 11) one
    two-step apply over the timed leaves;
 13. the ``kernels`` JSON line, then the last line:
@@ -191,6 +206,15 @@ WIRE_A_ARGS = with_flags(TRAIN_ARGS, attack="scale_poison") + [
     "--codec", "qsgd:bits=8"]
 WIRE_B_ARGS = with_flags(TRAIN_ARGS, attack="payload_flip", layers=1,
                          steps=2) + ["--codec", "signsgd:ef=1"]
+ADAPTIVE_A_ARGS = with_flags(TRAIN_ARGS, attack="adaptive_lie")
+ADAPTIVE_B_ARGS = with_flags(TRAIN_ARGS, attack="adaptive_mimic", layers=1,
+                             steps=2)
+#: K1 and K2 once per leaf per step, nothing else: the uncompressed path
+K1_K2 = {"pairwise_stats": 1, "fused_select": 1, "dequant_stats": 0,
+         "coord_select": 0, **NO_MESH_KERNELS}
+#: the checkpoint phase: steps before the save, then one step from the
+#: restored state and one from the state in memory
+CKPT_STEPS = 2
 
 
 class SmokeFailure(Exception):
@@ -1236,10 +1260,8 @@ def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True):
 
 
 def training(torch):
-    counts, shapes, history, _ = train_phase(
-        torch, "training", TRAIN_ARGS,
-        {"pairwise_stats": 1, "fused_select": 1, "dequant_stats": 0,
-         "coord_select": 0, **NO_MESH_KERNELS})
+    counts, shapes, history, _ = train_phase(torch, "training", TRAIN_ARGS,
+                                             K1_K2)
     return counts, shapes, [rec["seconds"] for rec in history]
 
 
@@ -1267,6 +1289,196 @@ def wire_training(torch):
           f"wire B: error-feedback residual max |r| per step {res}")
     log(f"wire B: residual max |r| per step {res} (finite, non-zero)")
     return counts, [rec["seconds"] for rec in history]
+
+
+def bits_equal(torch, a, b):
+    """Same dtype, shape and bits (an integer view of the same width)."""
+    if a.dtype != b.dtype or tuple(a.shape) != tuple(b.shape):
+        return False
+    if a.is_floating_point():
+        view = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+                1: torch.uint8}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def adaptive_training(torch):
+    """Phases adaptive A (``adaptive_lie``) and B (``adaptive_mimic``)
+    through the launcher: finite losses, K1 and K2 once per leaf per step
+    on the theta = 5 kernel, nothing else; each step's state recomputed on
+    the host in fp32 from the selection the step recorded (A: z up by 1.15
+    while the byzantine rows hold half their share of the mass, else down
+    by 0.7, clipped to [0.25, 16], exactly; B: trust = 0.9 trust + 0.1
+    selection[f:] within 1e-6).  The byzantine mass is logged, not gated:
+    these attacks are built to be selected.  Returns {phase: counts}."""
+    out = {}
+    counts, _, hist, _ = train_phase(
+        torch, "adaptive A (adaptive_lie)", ADAPTIVE_A_ARGS, K1_K2,
+        zero_byz=False)
+    out["adaptive_lie"] = counts
+    z = torch.tensor(1.0)
+    share = torch.tensor(F / N)
+    zs, picked = [], []
+    for i, rec in enumerate(hist):
+        sel = torch.tensor(rec["selection"], dtype=torch.float32)
+        f_rows = max(int(torch.round(share * sel.shape[0])), 1)
+        up = bool(torch.sum(sel[:f_rows]) >= 0.5 * share)
+        z = torch.clamp(z * (1.15 if up else 0.7), 0.25, 16.0)
+        check(rec["astate"]["z"] == float(z), f"adaptive A step {i}: z "
+              f"{rec['astate']['z']!r}, recomputed {float(z)!r}")
+        check(rec["astate"]["share"] == float(share),
+              f"adaptive A step {i}: share {rec['astate']['share']!r}")
+        zs.append(float(z))
+        picked.append(up)
+    log(f"adaptive A: z after each step {zs} (up: {picked}), byz_mass "
+        f"{[r['byz_mass'] for r in hist]} (logged, not gated)")
+    counts, _, hist, _ = train_phase(
+        torch, "adaptive B (adaptive_mimic)", ADAPTIVE_B_ARGS, K1_K2,
+        zero_byz=False)
+    out["adaptive_mimic"] = counts
+    trust = None
+    targets, worst = [], 0.0
+    for i, rec in enumerate(hist):
+        sel = torch.tensor(rec["selection"], dtype=torch.float32)
+        if trust is None:
+            trust = torch.zeros(sel.shape[0] - F)
+        targets.append(int(torch.argmax(trust)))
+        trust = 0.9 * trust + 0.1 * sel[F:]
+        err = float(torch.max(torch.abs(
+            torch.tensor(rec["astate"]["trust"]) - trust)))
+        check(err <= 1e-6, f"adaptive B step {i}: trust {rec['astate']} "
+              f"against {trust.tolist()} ({err:.3e})")
+        worst = max(worst, err)
+    log(f"adaptive B: honest row copied at each step {targets}, trust after "
+        f"the last {[round(v, 6) for v in hist[-1]['astate']['trust']]} "
+        f"(largest difference from the recomputed EMA {worst:.3e}), "
+        f"byz_mass {[r['byz_mass'] for r in hist]} (logged, not gated)")
+    return out
+
+
+def checkpoint_phase(torch, power):
+    """The adaptive-A configuration at 1 layer: CKPT_STEPS trainer steps,
+    then ``save`` of params, momentum and ``astate`` into a temporary
+    directory and ``restore`` onto the card, every leaf bit for bit; step
+    CKPT_STEPS + 1 from the restored state and from the state in memory
+    must give the same losses and selection, the parameters within 1e-6
+    relative (the largest difference printed).  K1 and K2 once per leaf
+    per step.  Returns the counts and the file's bytes and seconds."""
+    import shutil
+    import tempfile
+    from repro_torch import models as MD
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import RobustConfig, get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.dist import (init_train_state, make_train_step,
+                                  split_workers)
+    from repro_torch.kernels import ops
+    from repro_torch.optim import constant, sgd
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=1)
+    rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan")
+    opt = sgd(momentum=0.9)
+    params = MD.init_model(cfg, seed=0, device="cuda")
+    leaves = len(tree_leaves(params))
+    state = init_train_state(opt, params, n_workers=N,
+                             attack="adaptive_lie", attack_f=F)
+    step = make_train_step(cfg, rcfg, opt, constant(0.05), chunk_q=128,
+                           attack="adaptive_lie", telemetry=True)
+    data = lm_batches(cfg.vocab_size, 2 * N, 128, seed=0)
+
+    def batch():
+        return {k: v.to("cuda") for k, v in split_workers(next(data),
+                                                          N).items()}
+
+    ops.reset_launch_counts()
+    for i in range(CKPT_STEPS):
+        params, state, _ = step(params, state, batch(), i)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        saved = {"params": params, "state": state}
+        t0 = time.perf_counter()
+        path = save(tmp, CKPT_STEPS, saved)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = restore(tmp, CKPT_STEPS, saved, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pairs = list(zip(tree_leaves(params), tree_leaves(back["params"])))
+    pairs += zip(tree_leaves(state.opt.mu), tree_leaves(back["state"].opt.mu))
+    pairs += [(state.astate[k], back["state"].astate[k])
+              for k in sorted(state.astate)]
+    check(all(b.device == a.device for a, b in pairs),
+          "checkpoint: a restored leaf is not on the card")
+    check(all(bits_equal(torch, a, b) for a, b in pairs),
+          "checkpoint: a restored leaf differs from the saved one")
+    check(back["state"].opt.step == state.opt.step == CKPT_STEPS,
+          f"checkpoint: opt.step {back['state'].opt.step}")
+    wb = batch()
+    p_mem, s_mem, m_mem = step(params, state, wb, CKPT_STEPS)
+    p_back, s_back, m_back = step(back["params"], back["state"], wb,
+                                  CKPT_STEPS)
+    counts = ops.launch_counts()
+    steps = CKPT_STEPS + 2
+    want = {k: v * leaves * steps for k, v in K1_K2.items()}
+    check(counts == want, f"checkpoint: launches {counts}, want {want}")
+    k2_variant_check("checkpoint", counts["fused_select"])
+    check(torch.equal(m_mem["loss_per_worker"], m_back["loss_per_worker"]),
+          "checkpoint: the restored state's step gives other losses")
+    sel_mem = m_mem["telemetry"]["selection"]
+    check(torch.equal(sel_mem, m_back["telemetry"]["selection"]),
+          "checkpoint: the restored state's step selects otherwise")
+    diff = max(float(torch.max(torch.abs(a - b)) /
+                     max(1.0, float(torch.max(torch.abs(a)))))
+               for a, b in zip(tree_leaves(p_mem), tree_leaves(p_back)))
+    check(diff <= 1e-6, f"checkpoint: parameters after the restored "
+          f"state's step differ by {diff:.3e} (relative)")
+    check(bits_equal(torch, s_mem.astate["z"], s_back.astate["z"]),
+          "checkpoint: z after the restored state's step differs")
+    log(f"checkpoint ({cfg.n_layers} layer, adaptive_lie, {CKPT_STEPS} "
+        f"steps): {size:,} bytes, save {save_s:.3f}s, restore onto the card "
+        f"{restore_s:.3f}s; card {power}; {len(pairs)} leaves and opt.step "
+        f"bit for bit; step {CKPT_STEPS + 1} from both states: losses and "
+        f"selection equal, largest parameter difference {diff:.3e} "
+        f"(relative); launches {counts} = {leaves} leaves x {steps} steps")
+    del params, state, back, p_mem, s_mem, p_back, s_back, saved
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return counts, size, save_s, restore_s
+
+
+def quickstart(torch):
+    """``examples/quickstart_torch.py`` on the card: part 1's multi-Bulyan
+    cosine above 0.9; part 2's 8 losses finite, K1 and K2 once per leaf per
+    step, nothing else.  Returns part 2's counts."""
+    import importlib.util
+    from repro_torch import models as MD
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", os.path.join(ROOT, "examples",
+                                         "quickstart_torch.py"))
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    cosines = qs.part1_gar("cuda")
+    check(cosines["multi_bulyan"] > 0.9,
+          f"quickstart: multi_bulyan cosine {cosines['multi_bulyan']}")
+    leaves = len(tree_leaves(MD.init_model(qs.CFG, device="cpu")))
+    ops.reset_launch_counts()
+    losses = qs.part2_training("cuda")
+    counts = ops.launch_counts()
+    check(len(losses) == 8 and all(math.isfinite(v) for v in losses),
+          f"quickstart: losses {losses}")
+    want = {k: v * leaves * len(losses) for k, v in K1_K2.items()}
+    check(counts == want, f"quickstart: launches {counts}, want {want}")
+    k2_variant_check("quickstart", counts["fused_select"])
+    log(f"quickstart: cosines {cosines}; losses "
+        f"{[round(v, 4) for v in losses]}; launches {counts} = {leaves} "
+        f"leaves x {len(losses)} steps")
+    ops.reset_launch_counts()
+    return counts
 
 
 def network_exchanges(slots):
@@ -1569,7 +1781,8 @@ def profile_step(torch, label, attack, codec=None):
     rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan")
     opt = sgd(momentum=0.9)
     params = MD.init_model(cfg, seed=0, device="cuda")
-    state = init_train_state(opt, params, n_workers=N, codec=codec)
+    state = init_train_state(opt, params, n_workers=N, attack=attack,
+                             attack_f=F, codec=codec)
     step = make_train_step(cfg, rcfg, opt, constant(0.05), chunk_q=128,
                            attack=attack, codec=codec, telemetry=True)
     data = lm_batches(cfg.vocab_size, 2 * N, 128, seed=0)
@@ -1645,6 +1858,7 @@ def main():
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_main = time.perf_counter()
     try:
         power = header()
         build_kernels()
@@ -1660,6 +1874,9 @@ def main():
         worst_k3 = k3_vs_plain(torch)
         counts_k3, held, n_diff = two_step_substrate(torch)
         transform_training(torch)
+        counts_phase = {"training": counts, **adaptive_training(torch)}
+        counts_phase["checkpoint"], *_ = checkpoint_phase(torch, power)
+        counts_phase["quickstart"] = quickstart(torch)
         counts_mesh = mesh_statistics(torch)
         tot = timing(torch, shapes, worst_k5)
         tot_mesh = mesh_timing(torch, shapes)
@@ -1696,6 +1913,7 @@ def main():
         profile_step(torch, "uncompressed (inf)", "inf")
         profile_step(torch, "wire A (qsgd:bits=8, scale_poison)",
                      "scale_poison", "qsgd:bits=8")
+        profile_step(torch, "adaptive A (adaptive_lie)", "adaptive_lie")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", flush=True)
         return 1
@@ -1704,6 +1922,8 @@ def main():
          "source": "src/repro_torch/csrc/pairwise_stats.cu",
          "replaces": "src/repro/kernels/pairwise_sqdist.py:139",
          "launches": counts["pairwise_stats"],
+         "launches_by_phase": {k: c["pairwise_stats"]
+                               for k, c in counts_phase.items()},
          "max_abs_err": worst["pairwise_stats"],
          "ms": tot["k1"], "plain_ms": tot["k1_plain"],
          "bound_ms": tot["k1_bound"], "bound_by": tot["k1_bound_by"],
@@ -1712,6 +1932,8 @@ def main():
          "source": "src/repro_torch/csrc/fused_select.cu",
          "replaces": "src/repro/kernels/fused_select.py:142",
          "launches": counts["fused_select"],
+         "launches_by_phase": {k: c["fused_select"]
+                               for k, c in counts_phase.items()},
          "max_abs_err": worst["fused_select"],
          "ms": tot["k2"], "plain_ms": tot["k2_plain"],
          "bound_ms": tot["k2_bound"], "bound_by": tot["k2_bound_by"],
@@ -1796,7 +2018,8 @@ def main():
          "library_ms": tot_mesh["k4_lib"]},
     ]
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
-        f"{wire_s}")
+        f"{wire_s}; whole run {time.perf_counter() - t_main:.1f}s (the "
+        f"kernels' build included)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,20 @@ proposals; ``gen`` is a ``torch.Generator`` (only ``gaussian`` draws from
 it).  The stack handed to the GAR is ``concat([G_byz, G_correct])``.
 
 Attacks are addressed by spec string: a bare registry name or a name with
-keyword overrides (``"sign_flip:scale=5"``).  The wire attacks, which
-forge the encoded messages of a ``repro_torch.comm`` wire, are at the end
-of the module.  The adaptive attacks of the JAX module are not ported yet.
+keyword overrides (``"sign_flip:scale=5"``).
+
+Adaptive attacks (``ADAPTIVE``) carry a small state across steps and
+receive plan feedback, the previous round's per-worker selection weights:
+the adaptive little-is-enough tunes its z to sit just under the rejection
+threshold, the adaptive mimic copies whichever honest worker the plan
+trusts most.  The stacked trainer threads their state
+(``dist.trainer.make_train_step``).  The wire attacks, which forge the
+encoded messages of a ``repro_torch.comm`` wire, are at the end of the
+module.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -19,6 +27,7 @@ import torch
 
 Tensor = torch.Tensor
 Attack = Callable[[Tensor, int, Optional[torch.Generator]], Tensor]
+State = Dict[str, Tensor]
 
 
 def fold_seed(seed: int, data: int) -> int:
@@ -123,7 +132,8 @@ def get_attack(spec: str) -> Attack:
         fn = ATTACKS[name]
     except KeyError:
         raise KeyError(f"unknown attack {name!r}; available: "
-                       f"{sorted(ATTACKS)}") from None
+                       f"{sorted(ATTACKS)} (adaptive: {sorted(ADAPTIVE)})"
+                       ) from None
     if not kwargs:
         return fn
     params = inspect.signature(fn).parameters
@@ -148,6 +158,127 @@ def apply_attack(G_correct: Tensor, f: int, name: str,
         return G_correct
     byz = get_attack(name)(G_correct, f, gen)
     return torch.cat([byz.to(G_correct.dtype), G_correct], dim=0)
+
+
+# --------------------------------------------------------------------------
+# adaptive (plan-feedback) attacks
+#
+# ``init_state(n, f, device=)`` returns a dict of fp32 tensors on
+# ``device``; ``propose(G, f, gen, state)`` maps the (n-f, d) correct
+# stack to (f, d) proposals exactly like a static attack;
+# ``update(state, selection)`` consumes the plan's per-worker selection
+# weights (convex (n,) vector, byzantine rows first) after the round and
+# returns the next state.  Neither reads a value back to the host.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AdaptiveAttack:
+    name: str = ""
+
+    def init_state(self, n: int, f: int, device=None) -> State:
+        raise NotImplementedError
+
+    def propose(self, G: Tensor, f: int, gen, state: State) -> Tensor:
+        raise NotImplementedError
+
+    def update(self, state: State, selection: Tensor) -> State:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveLittleIsEnough(AdaptiveAttack):
+    """Little-is-enough with a feedback-tuned z (Baruch et al. + probing).
+
+    While the byzantine rows keep winning at least half their uniform share
+    of the selection mass, push z up by ``up``; once the plan rejects them,
+    back off by ``down`` until re-admitted.
+    """
+
+    name: str = "adaptive_lie"
+    z0: float = 1.0
+    up: float = 1.15
+    down: float = 0.7
+    z_min: float = 0.25
+    z_max: float = 16.0
+
+    def init_state(self, n: int, f: int, device=None) -> State:
+        return {"z": torch.tensor(self.z0, dtype=torch.float32,
+                                  device=device),
+                "share": torch.tensor(f / max(n, 1), dtype=torch.float32,
+                                      device=device)}
+
+    def propose(self, G: Tensor, f: int, gen, state: State) -> Tensor:
+        mu = torch.mean(G, dim=0)
+        sd = torch.std(G, dim=0, correction=0)
+        return _rows(mu - state["z"] * sd, f).to(G.dtype)
+
+    def update(self, state: State, selection: Tensor) -> State:
+        # byzantine rows come first (inject_byzantine); round half to even
+        # in fp32, as jnp.round
+        n = selection.shape[0]
+        share = state["share"]
+        f_rows = torch.clamp(torch.round(share * n).to(torch.int32), min=1)
+        rows = torch.arange(n, device=selection.device)
+        byz_mass = torch.sum(torch.where(rows < f_rows, selection.float(),
+                                         0.0))
+        z = torch.where(byz_mass >= 0.5 * share, state["z"] * self.up,
+                        state["z"] * self.down)
+        return {"z": torch.clamp(z, self.z_min, self.z_max), "share": share}
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveMimic(AdaptiveAttack):
+    """Mimic steered by the plan: copy the most-trusted honest worker.
+
+    Tracks an EMA of each honest worker's selection weight and clones the
+    current argmax (the first one: at step 0 every trust is 0, so honest
+    row 0).
+    """
+
+    name: str = "adaptive_mimic"
+    ema: float = 0.9
+
+    def init_state(self, n: int, f: int, device=None) -> State:
+        return {"trust": torch.zeros((n - f,), dtype=torch.float32,
+                                     device=device)}
+
+    def propose(self, G: Tensor, f: int, gen, state: State) -> Tensor:
+        # index_select keeps the argmax on the device
+        target = torch.argmax(state["trust"]).reshape(1).to(G.device)
+        return _rows(torch.index_select(G, 0, target)[0], f).to(G.dtype)
+
+    def update(self, state: State, selection: Tensor) -> State:
+        n_honest = state["trust"].shape[0]
+        honest_sel = selection[selection.shape[0] - n_honest:].float()
+        return {"trust": self.ema * state["trust"]
+                + (1.0 - self.ema) * honest_sel}
+
+
+ADAPTIVE: Dict[str, Callable[..., AdaptiveAttack]] = {
+    "adaptive_lie": AdaptiveLittleIsEnough,
+    "adaptive_mimic": AdaptiveMimic,
+}
+
+
+def is_adaptive(spec: str) -> bool:
+    return parse_spec(spec)[0] in ADAPTIVE
+
+
+def get_adaptive(spec: str) -> AdaptiveAttack:
+    """Resolve an adaptive attack spec to a configured instance."""
+    name, kwargs = parse_spec(spec)
+    try:
+        cls = ADAPTIVE[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown adaptive attack {name!r}; "
+            f"available: {sorted(ADAPTIVE)}") from None
+    fields = {fl.name for fl in dataclasses.fields(cls) if fl.name != "name"}
+    unknown = set(kwargs) - fields
+    if unknown:
+        raise ValueError(
+            f"adaptive attack {name!r} has no parameter(s) {sorted(unknown)}; "
+            f"tunable: {sorted(fields)}")
+    return cls(**kwargs)
 
 
 # --------------------------------------------------------------------------

@@ -13,7 +13,7 @@ flows through the selected averages only.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -210,3 +210,33 @@ def bulyan(G: Tensor, f: int, dists: Optional[Tensor] = None) -> Tensor:
 def multi_bulyan(G: Tensor, f: int, dists: Optional[Tensor] = None) -> Tensor:
     """MULTI-BULYAN (Algorithm 1): BULYAN over MULTI-KRUM aggregates."""
     return _bulyan_family(G, f, multi=True, dists=dists)
+
+
+# --------------------------------------------------------------------------
+# legacy entry points (as in the JAX package: dispatch by name lives in the
+# plan/apply registry of ``core/api.py``; ``aggregate`` delegates to it)
+# --------------------------------------------------------------------------
+GARS: Dict[str, Callable[..., Tensor]] = {
+    "average": average,
+    "median": coordinate_median,
+    "trimmed_mean": trimmed_mean,
+    "krum": krum,
+    "multi_krum": multi_krum,
+    "bulyan": bulyan,
+    "multi_bulyan": multi_bulyan,
+}
+
+
+def get_gar(name: str) -> Callable[..., Tensor]:
+    try:
+        return GARS[name]
+    except KeyError:
+        raise KeyError(f"unknown GAR {name!r}; available: "
+                       f"{sorted(GARS)}") from None
+
+
+def aggregate(G: Tensor, f: int, name: str = "multi_bulyan") -> Tensor:
+    """Aggregate an (n, d) gradient stack with the named rule: the
+    registry's :func:`repro_torch.core.api.aggregate_matrix`."""
+    from repro_torch.core import api  # api imports this module
+    return api.aggregate_matrix(G, f, name)

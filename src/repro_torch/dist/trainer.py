@@ -26,13 +26,15 @@ One train step:
 
 The step has signature ``(params, state, batch, seed) -> (params, state,
 metrics)``; ``state`` is a :class:`TrainerState` (``opt``; ``tstates``,
-one entry per transform; ``cres``, the error-feedback residual, under an
-``ef=1`` codec).  The mesh, hierarchical and observability options of the
-JAX trainer, and its adaptive attacks, are not ported yet.
+one entry per transform; ``astate``, the adaptive attack's feedback
+state; ``cres``, the error-feedback residual, under an ``ef=1`` codec).
+The mesh, hierarchical and observability options of the JAX trainer are
+not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -121,10 +123,13 @@ def inject_wire(enc: CM.EncodedGrads, f: int, attack, seed: int = 0
 class TrainerState:
     """The trainer-state container, accessed by field name: ``opt`` (the
     optimizer's :class:`OptState`), ``tstates`` (one state per transform,
-    ``None`` for a stateless one; ``()`` when no transform is stateful)
-    and ``cres`` (the error-feedback compression residual, a tree of fp32
-    ``(n, ...)`` leaves, ``None`` unless the codec has ``ef=1``).  The
-    other slots of the JAX container wait for their subsystems."""
+    ``None`` for a stateless one; ``()`` when no transform is stateful),
+    ``astate`` (the adaptive attack's state, a dict of fp32 tensors,
+    ``None`` unless the attack is adaptive) and ``cres`` (the
+    error-feedback compression residual, a tree of fp32 ``(n, ...)``
+    leaves, ``None`` unless the codec has ``ef=1``).  The other slots of
+    the JAX container wait for their subsystems; the checkpoint store
+    saves the slots by field name (``state|astate|z``)."""
 
     opt: OptState
     tstates: tuple = ()
@@ -139,25 +144,33 @@ def _resolve_codec(codec) -> Optional[CM.Codec]:
 
 def init_train_state(opt: Optimizer, params: Tree,
                      transforms: Sequence[api.Transform] = (), *,
-                     n_workers: int = 0, codec=None) -> TrainerState:
+                     n_workers: int = 0, attack: str = "none",
+                     attack_f: int = 0, codec=None) -> TrainerState:
     """Initial :class:`TrainerState`: stateful transforms (worker
     momentum) fill ``tstates``, and an error-feedback codec (``ef=1``)
-    ``cres``, with zeros shaped like the ``n_workers`` stack."""
+    ``cres``, with zeros shaped like the ``n_workers`` stack; an adaptive
+    attack spec (``core.attacks.ADAPTIVE``) fills ``astate``, seeded for
+    ``attack_f`` byzantine rows on the parameters' device."""
     codec_obj = _resolve_codec(codec)
     stateful = any(t.stateful for t in transforms)
+    adaptive = isinstance(attack, str) and ATK.is_adaptive(attack)
     ef = codec_obj is not None and codec_obj.stateful
-    if not stateful and not ef:
+    if not stateful and not adaptive and not ef:
         return TrainerState(opt=opt.init(params))
     if n_workers <= 0:
-        raise ValueError("stateful transforms / error-feedback codecs "
-                         "need n_workers > 0")
+        raise ValueError("stateful transforms / adaptive attacks / "
+                         "error-feedback codecs need n_workers > 0")
     # expand: the stacked shapes as views, nothing allocated
     stacked = tree_map(
         lambda p: p.expand((n_workers,) + tuple(p.shape)), params)
     tstates = api.init_transform_states(transforms, stacked) \
         if stateful else ()
+    astate = ATK.get_adaptive(attack).init_state(
+        n_workers, attack_f, device=tree_leaves(params)[0].device) \
+        if adaptive else None
     cres = codec_obj.init_residual(stacked) if ef else None
-    return TrainerState(opt=opt.init(params), tstates=tstates, cres=cres)
+    return TrainerState(opt=opt.init(params), tstates=tstates,
+                        astate=astate, cres=cres)
 
 
 # ------------------------------------------------------------------ trainer
@@ -209,6 +222,10 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     ``attack`` is a spec string (``core.attacks.get_attack``, or a wire
     attack of ``core.attacks.WIRE_ATTACKS``, which needs a codec);
     ``attack_f`` the number of rows it controls (defaults to ``rcfg.f``).
+    An adaptive spec (``adaptive_lie``, ``adaptive_mimic``) proposes from
+    ``state.astate`` as it was before the step and updates it from the
+    plan's selection weights after the apply (seed it with
+    :func:`init_train_state`).
 
     ``codec`` (a ``repro_torch.comm`` spec such as ``"qsgd:bits=8"``)
     puts a compressed wire between workers and aggregator: the workers
@@ -241,8 +258,13 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
         raise ValueError(
             f"wire attack {attack!r} needs a codec= wire to attack "
             f"(available codecs: {list(CM.available_codecs())})")
-    attack_fn = ATK.get_wire_attack(attack) if wire else \
-        ATK.get_attack(attack)
+    adaptive = None
+    if wire:
+        attack_fn = ATK.get_wire_attack(attack)
+    elif ATK.is_adaptive(attack):
+        adaptive, attack_fn = ATK.get_adaptive(attack), None
+    else:
+        attack_fn = ATK.get_attack(attack)
     # telemetry wants the score spectrum even for distance-free rules
     backend = api.AggregatorBackend.for_config(
         rcfg, coord_chunk=coord_chunk, needs_dists=telemetry)
@@ -250,8 +272,15 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     def step(params, state: TrainerState, batch, seed: int = 0):
         losses, grads = per_worker_grads(params, cfg, batch, window=window,
                                          chunk_q=chunk_q)
+        astate, atk = state.astate, attack_fn
+        if adaptive is not None:
+            if astate is None:
+                raise ValueError(
+                    f"adaptive attack {attack!r} needs its state: build it "
+                    f"with init_train_state(..., attack={attack!r})")
+            atk = functools.partial(adaptive.propose, state=astate)
         if not wire:
-            grads = inject_byzantine(grads, f_eff, attack_fn, seed)
+            grads = inject_byzantine(grads, f_eff, atk, seed)
         enc, cres = None, state.cres
         with torch.no_grad():
             if codec_obj is not None:
@@ -277,6 +306,8 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
             stats = backend.stats(stats_src)
             plan = backend.plan(stats)
             agg = backend.apply(plan, grads)
+            if adaptive is not None:
+                astate = adaptive.update(astate, plan.selection_weights())
             lr = lr_fn(state.opt.step)
             new_params, new_opt = opt.update(agg, state.opt, params, lr)
             gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
@@ -294,7 +325,7 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     diag["wire_bytes_per_worker"] = enc.bytes_per_worker
                 metrics["telemetry"] = diag
         new_state = dataclasses.replace(state, opt=new_opt, tstates=tstates,
-                                        cres=cres)
+                                        astate=astate, cres=cres)
         return tree_map(lambda p: p.detach(), new_params), new_state, metrics
 
     return step

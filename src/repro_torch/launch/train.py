@@ -13,6 +13,8 @@ Usage:
       --steps 3 --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --layers 2 --steps 3 --codec qsgd:bits=8 --attack scale_poison
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+      --steps 3 --seq 16 --attack adaptive_lie --ckpt-dir ckpt
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import models as MD
+from repro_torch.checkpoint import save
 from repro_torch.comm import wire_stats
 from repro_torch.configs import ARCH_NAMES, RobustConfig, get_config
 from repro_torch.data import lm_batches
@@ -61,6 +64,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save {'params': ...} here after the last step "
+                         "(repro_torch.checkpoint, the JAX package's "
+                         "format)")
     ap.add_argument("--log-every", type=int, default=1)
     return ap.parse_args(argv)
 
@@ -72,7 +79,9 @@ def run(argv: Optional[Sequence[str]] = None
     ``agg_grad_norm``, ``lr``, ``seconds``; under a codec also
     ``wire_bytes_per_worker`` and, with ``ef=1``, ``residual_max_abs``,
     the largest magnitude in the error-feedback residual after the
-    step)."""
+    step; under an adaptive attack also ``astate``, the attack's state
+    after the step as host floats and lists, and ``selection``, the
+    plan's (n,) selection weights)."""
     args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -109,6 +118,7 @@ def run(argv: Optional[Sequence[str]] = None
               f"{ws.chunks_per_worker} chunk(s) of {ws.chunk_bytes:,} B)",
               flush=True)
     state = init_train_state(opt, params, n_workers=args.workers,
+                             attack=args.attack, attack_f=args.f,
                              codec=args.codec)
     data = lm_batches(cfg.vocab_size, args.workers * args.per_worker_batch,
                       args.seq, seed=args.seed)
@@ -130,6 +140,9 @@ def run(argv: Optional[Sequence[str]] = None
                "lr": float(metrics["lr"]), "seconds": seconds}
         if "wire_bytes_per_worker" in tel:
             rec["wire_bytes_per_worker"] = tel["wire_bytes_per_worker"]
+        if state.astate is not None:
+            rec["astate"] = {k: v.tolist() for k, v in state.astate.items()}
+            rec["selection"] = tel["selection"].tolist()
         if state.cres is not None:
             rec["residual_max_abs"] = max(
                 float(torch.max(torch.abs(r))) for r in tree_leaves(state.cres))
@@ -138,6 +151,9 @@ def run(argv: Optional[Sequence[str]] = None
             print(f"[train] step {i:5d} loss {rec['loss']:.4f} "
                   f"byz_mass {rec['byz_mass']:.4f} lr {rec['lr']:.2e} "
                   f"({seconds:.3f}s)", flush=True)
+    if args.ckpt_dir:
+        path = save(args.ckpt_dir, args.steps, {"params": params})
+        print(f"[train] checkpoint -> {path}", flush=True)
     print(f"[train] done: final loss {history[-1]['loss']:.4f}"
           if history else "[train] done: no steps", flush=True)
     return params, history

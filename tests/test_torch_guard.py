@@ -1,7 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-``chip_smoke.py`` or ``tools/time_k1.py`` imports ``jax`` or the JAX
-package ``repro``, and the smoke script refuses to run without a card or
-outside a checkout."""
+``chip_smoke.py``, ``tools/time_k1.py`` or ``examples/quickstart_torch.py``
+imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``, and the smoke
+script refuses to run without a card or outside a checkout."""
 import ast
 import os
 import pathlib
@@ -13,12 +13,13 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                        REPO / "tools" / "time_k1.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tools" / "time_k1.py",
+    REPO / "examples" / "quickstart_torch.py"]
 
 
 def _forbidden(module: str) -> bool:
-    return module.split(".")[0] in ("jax", "jaxlib", "repro")
+    return module.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -69,6 +70,18 @@ def test_the_mesh_modules_are_covered():
         assert f"src/repro_torch/{want}" in names
 
 
+def test_the_checkpoint_and_core_modules_are_covered():
+    """The checkpoint store, the quickstart and the modules that gained the
+    adaptive attacks, the theory and the legacy GAR entry points are among
+    the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("checkpoint/__init__.py", "checkpoint/store.py",
+                 "core/__init__.py", "core/attacks.py", "core/theory.py",
+                 "core/gar.py", "launch/train.py"):
+        assert f"src/repro_torch/{want}" in names
+    assert "examples/quickstart_torch.py" in names
+
+
 def test_the_mesh_worker_imports_no_jax():
     """The spawned ranks of ``tests/test_torch_mesh.py`` import the port
     only."""
@@ -83,7 +96,7 @@ def test_importing_every_port_module_loads_no_jax():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
