@@ -37,6 +37,14 @@ Phases; any failure exits non-zero and no result line is printed:
    at every step, and K1 and K2 must each launch once per gradient leaf
    per step, K5 and K3 never, every K2 launch on the kernel compiled for
    theta = 5 (as in phases 5, 6 and 10);
+   Then mesh training: the same flags with ``--mesh host``, in the
+   one-rank NCCL world (1x1) that the launcher starts and destroys: K6
+   (the mesh statistics, every launch on the symmetric grid) and K2 (the
+   mesh apply on the rank's column tile, the gathered stack itself) once
+   per leaf per step, K1 never; the mesh line printed, no process group
+   left up, and every step's loss, per-worker losses, selection and
+   byzantine mass and the parameters after the last step bit for bit the
+   training phase's;
 5. wire training A: the same configuration with ``--codec qsgd:bits=8
    --attack scale_poison``: finite losses, byzantine mass 0 at each step,
    the printed wire line at one byte a coordinate plus 4 a leaf, and K5
@@ -44,7 +52,9 @@ Phases; any failure exits non-zero and no result line is printed:
 6. wire training B: ``--codec signsgd:ef=1 --attack payload_flip`` for 2
    steps at 1 layer: finite losses, a finite non-zero error-feedback
    residual after each step, K5 and K2 once per leaf per step, K1 and K3
-   never;
+   never.  Then mesh wire: wire A's flags at 1 layer for 2 steps,
+   replicated (K5 and K2 once per leaf per step), then with ``--mesh
+   host`` (K7 on the symmetric grid and K2, K5 never), bit for bit alike;
 7. K5 on a real wire-A container (one batch's gradients, QSGD-encoded,
    forged by ``scale_poison``): every leaf checked as in phase 3, and no
    plan mass on the forged rows;
@@ -97,7 +107,8 @@ Phases; any failure exits non-zero and no result line is printed:
 13. the ``kernels`` JSON line, then the last line:
    ``{"ok": true, "device": {...}}``.
 
-The mesh-native statistics (after phase 3, 10 and 11 in that order):
+The mesh-native statistics and apply (after phase 3, 10 and 11 in that
+order):
 
 * K6 ``pairwise_stats_rect``, K7 ``dequant_stats_rect`` and K4
   ``pairwise_sqdist`` against the square kernels and their plain
@@ -126,6 +137,20 @@ The mesh-native statistics (after phase 3, 10 and 11 in that order):
   through K7 on the int8 wire, each launch on the rectangular grid (every
   K6 launch on its view path), assembled: bit for bit the replicated raw
   (n, n) and norms;
+* the mesh apply's tiles: one batch's real gradients (``inf``) and their
+  plan, every rank of a 2x2 and a 4x1 mesh emulated in one process: each
+  rank's K2 launch on the (n_pad = 12, d/M) tile its worker all-gather
+  builds (``core.api.row_block`` and the column tile, the weights
+  zero-padded to 12), and its K3 route (the two products on the tile,
+  then K3); the ranks of one model index agree bit for bit, the K2 tiles
+  assembled over the model index equal the replicated K2 output of every
+  leaf bit for bit, W M launches per leaf and nothing else; K3 bit for
+  bit its plain version on every tile's products, and the K3 route's
+  output bit for bit the replicated route's wherever the tile's cuBLAS
+  products equal the replicated ones, elsewhere (only in the leaves of
+  ``K3_ROUTE_WIDTHS``, only at M > 1) within 1e-6 x max|x|; one rank's K2 tiles per step timed (CUDA events) beside the
+  replicated K2 on the same leaves, with their bounds (the ``kernels``
+  line's ``tile_ms``, ``tile_bound_ms`` on the K2 entry);
 * timing of K6 at 1x1 and on a 4-rank block (and, logged, a copy of that
   block: the rectangular grid without the view path), K7 (int8, bf16) the
   same, and K4, at the main path's leaf shapes beside their plain
@@ -138,8 +163,9 @@ The mesh-native statistics (after phase 3, 10 and 11 in that order):
   launches).
 
 Launch counts are read per phase: every count is set to 0 just before a
-training phase, a substrate's apply or a mesh statistics pass and read
-just after it.  K4 has no caller on any of those paths.
+training phase, a substrate's apply, a mesh statistics pass or a mesh
+tile route and read just after it (``launches_by_phase`` in the
+``kernels`` line).  K4 has no caller on any of those paths.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
@@ -155,6 +181,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -215,6 +242,27 @@ K1_K2 = {"pairwise_stats": 1, "fused_select": 1, "dequant_stats": 0,
 #: the checkpoint phase: steps before the save, then one step from the
 #: restored state and one from the state in memory
 CKPT_STEPS = 2
+#: the mesh training phase: the training phase's flags on the host mesh
+MESH_TRAIN_ARGS = TRAIN_ARGS + ["--mesh", "host"]
+#: the mesh wire phase: wire A's flags at 1 layer for 2 steps, run
+#: replicated and on the host mesh
+MESH_WIRE_ARGS = with_flags(WIRE_A_ARGS, layers=1, steps=2)
+#: K5 and K2 once per leaf per step: the replicated wire path
+K5_K2 = {**K1_K2, "pairwise_stats": 0, "dequant_stats": 1}
+#: the 1x1 mesh step: the statistics K6 (K7 off the wire) and the apply K2,
+#: once per leaf per step, nothing else
+MESH_K6_K2 = {**K1_K2, "pairwise_stats": 0, "pairwise_stats_rect": 1}
+MESH_K7_K2 = {**K1_K2, "pairwise_stats": 0, "dequant_stats_rect": 1}
+#: the (W, M) meshes whose ranks the tile phase emulates in one process
+TILE_MESHES = ((2, 2), (4, 1))
+#: the K3 route on a column tile: the leaf widths where cuBLAS may form a
+#: tile's products in another summation order than the whole leaf's (on
+#: the H100, the 3072-wide leaves cut into 1536-wide tiles), and the bound
+#: on the outputs there, relative to the leaf's largest |x|: one product
+#: is a convex sum of n_pad = 12 rows, so any two summation orders differ
+#: by at most 12 x 2**-24 x max|x| (< 1e-6 x max|x|, test_spmd's bound)
+K3_ROUTE_WIDTHS = (3072,)
+K3_ROUTE_TOL = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -1199,6 +1247,230 @@ def mesh_blocks(torch, label, g, wire):
     return want_c[kernel]
 
 
+def rank_tile(torch, x, W, w, M, k):
+    """The (n_pad, d/M) tile that rank (w, k) of a W x M mesh gathers for
+    the (N, d) leaf rows ``x``: every worker shard's row block
+    (``core.api.row_block``) cut to model index k's column tile, as
+    ``core.api._sharded_apply_leaf`` cuts it, stacked in worker order as
+    the all-gather stacks it."""
+    from repro_torch.core import api
+
+    def rank(v):
+        return types.SimpleNamespace(worker_size=W, worker_index=v,
+                                     model_size=M, model_index=k)
+
+    return torch.cat([api._tile2d(api.row_block(x, rank(v)).rows, rank(v))
+                      for v in range(W)])
+
+
+def tiles_k2(torch, mesh, leaves, want, we_p, wa_p, beta, W, M):
+    """Every rank's K2 launch on its tile: the ranks of one model index
+    alike, the tiles assembled over the model index bit for bit the
+    replicated K2 output ``want`` of every leaf."""
+    from repro_torch.kernels import ops
+    for i, x in enumerate(leaves):
+        parts = []
+        for k in range(M):
+            outs = [ops.fused_select(rank_tile(torch, x, W, w, M, k), we_p,
+                                     wa_p, beta) for w in range(W)]
+            check(all(same_bits(torch, o, outs[0]) for o in outs[1:]),
+                  f"mesh tiles {mesh} K2 leaf {i}: the ranks of model "
+                  f"index {k} disagree")
+            parts.append(outs[0])
+            del outs
+        check(same_bits(torch, torch.cat(parts)[:x.shape[1]], want[i]),
+              f"mesh tiles {mesh} K2 leaf {i} ({tuple(x.shape)}): the "
+              f"assembled tiles differ from the replicated output")
+        del parts
+
+
+def tiles_k3(torch, mesh, leaves, want, we, wa, we_p, wa_p, beta, W, M):
+    """Every rank's K3 route: the two products on its tile (the weights
+    zero-padded), then K3, held bit for bit to K3's plain version on those
+    products; and K3 on the rank's columns of the replicated route's
+    products, which must give the replicated K3 output ``want`` there bit
+    for bit.  The route's own output must equal the replicated route's bit
+    for bit in every column where the tile's products equal the replicated
+    products, and at M = 1 (the zero rows alone, no column tiling) the
+    products must be equal everywhere.  At M > 1 cuBLAS may take another
+    kernel for the tile's width than for the leaf's, and then sums a
+    product in another order (ROADMAP.md queue 3): that is allowed only in
+    the leaves of a width in ``K3_ROUTE_WIDTHS``, and there the outputs
+    must lie within ``K3_ROUTE_TOL`` x max|x| of the leaf's replicated
+    ones.  Returns (columns whose products differ, outputs that differ
+    there, the largest absolute output difference, the widths of the
+    leaves where they differ)."""
+    from repro_torch.kernels import ops, ref
+    cols_diff = out_diff = 0
+    worst = 0.0
+    widths = set()
+    for i, x in enumerate(leaves):
+        numel = x.shape[1]
+        pe, pa = torch.matmul(we, x), torch.matmul(wa, x)
+        tol = K3_ROUTE_TOL * float(torch.max(torch.abs(x)))
+        for k in range(M):
+            first = None
+            for w in range(W):
+                tile = rank_tile(torch, x, W, w, M, k)
+                ge, ga = torch.matmul(we_p, tile), torch.matmul(wa_p, tile)
+                del tile
+                out = ops.coord_select(ge, ga, beta)
+                check(same_bits(torch, out, ref.coord_select_ref(ge, ga,
+                                                                 beta)),
+                      f"mesh tiles {mesh} K3 leaf {i} rank ({w}, {k}): "
+                      f"differs from its plain version")
+                m = ge.shape[1]
+                cols = slice(k * m, min((k + 1) * m, numel))
+                rep = ops.coord_select(pe[:, cols].contiguous(),
+                                       pa[:, cols].contiguous(), beta)
+                check(same_bits(torch, rep, want[i][cols]),
+                      f"mesh tiles {mesh} K3 leaf {i} rank ({w}, {k}): on "
+                      f"the replicated products' columns it differs from "
+                      f"the replicated launch")
+                mc = rep.shape[0]
+                same = torch.all(ge[:, :mc] == pe[:, cols], dim=0) & \
+                    torch.all(ga[:, :mc] == pa[:, cols], dim=0)
+                check(same_bits(torch, out[:mc][same], rep[same]),
+                      f"mesh tiles {mesh} K3 leaf {i} rank ({w}, {k}): "
+                      f"differs where its products are the replicated ones")
+                diff = ~same
+                if bool(diff.any()):
+                    check(M > 1, f"mesh tiles {mesh} K3 leaf {i}: the "
+                          f"zero-padded products differ from the "
+                          f"replicated ones")
+                    check(numel in K3_ROUTE_WIDTHS, f"mesh tiles {mesh} K3 "
+                          f"leaf {i} ({numel} wide): the tile's products "
+                          f"differ from the replicated ones in "
+                          f"{int(diff.sum())} columns, outside the widths "
+                          f"{K3_ROUTE_WIDTHS} where cuBLAS may sum in "
+                          f"another order")
+                    err = float(torch.max(torch.abs(out[:mc][diff]
+                                                    - rep[diff])))
+                    check(err <= tol, f"mesh tiles {mesh} K3 leaf {i} rank "
+                          f"({w}, {k}): {err:.3e} from the replicated "
+                          f"route where the products differ, over "
+                          f"{tol:.3e} ({K3_ROUTE_TOL} x max|x|)")
+                if first is None:
+                    first = out
+                    cols_diff += int(diff.sum())
+                    out_diff += int((out[:mc][diff] != rep[diff]).sum())
+                    if bool(diff.any()):
+                        widths.add(numel)
+                        worst = max(worst, err)
+                check(same_bits(torch, out, first), f"mesh tiles {mesh} K3 "
+                      f"leaf {i}: the ranks of model index {k} disagree")
+                del ge, ga, out, rep, same, diff
+        del pe, pa
+    return cols_diff, out_diff, worst, sorted(widths)
+
+
+def mesh_tiles(torch):
+    """The mesh apply's tiles on one batch's real gradients (the training
+    phase's configuration, ``inf`` attack) and their plan, every rank of a
+    2x2 and a 4x1 mesh emulated in this process (n_pad = 12 of n = 11):
+    each rank's K2 launch on its tile (:func:`rank_tile`) with the plan's
+    weights zero-padded to n_pad (:func:`tiles_k2`: bit for bit the
+    replicated K2), and each rank's K3 route (:func:`tiles_k3`).  Every
+    count is set to 0 just before each mesh's K2 and K3 passes and read
+    just after: W M K2 launches per leaf; 2 W M K3 launches per leaf (the
+    route's, and K3 on the replicated products' columns), nothing else.
+    Then one rank's K2 tiles per step are timed (CUDA events) beside the
+    replicated K2 on the same leaves, with their bounds.  Returns
+    ({"<W>x<M> k2|k3": counts}, {mesh: ms, "replicated": ms}, {mesh:
+    bound}, bound_by)."""
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    from repro_torch.tree import tree_leaves
+    grads = real_gradients(torch)
+    leaves = [x.reshape(N, -1) for x in tree_leaves(grads)]
+    backend = api.AggregatorBackend("multi_bulyan", F)
+    with torch.no_grad():
+        plan = backend.plan(backend.stats(grads))
+        byz = float(torch.sum(plan.selection_weights()[:F]))
+        check(byz == 0.0, f"mesh tiles: byzantine plan mass {byz}")
+        we = plan.w_ext.float().contiguous()
+        wa = plan.w_agr.float().contiguous()
+        beta, theta = plan.beta, we.shape[0]
+        want = {"k2": [ops.fused_select(x, we, wa, beta) for x in leaves],
+                "k3": [ops.coord_select(torch.matmul(we, x),
+                                        torch.matmul(wa, x), beta)
+                       for x in leaves]}
+    counts, ms, bound = {}, {}, {}
+    b_bytes, b_ops = {}, {}
+    for W, M in TILE_MESHES:
+        mesh = f"{W}x{M}"
+        n_pad = W * -(-N // W)
+        we_p = api._pad_cols(we, n_pad).contiguous()
+        wa_p = api._pad_cols(wa, n_pad).contiguous()
+        for name, kernel, per_leaf in (("k2", "fused_select", W * M),
+                                       ("k3", "coord_select", 2 * W * M)):
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                if name == "k2":
+                    tiles_k2(torch, mesh, leaves, want["k2"], we_p, wa_p,
+                             beta, W, M)
+                else:
+                    k3_diff = tiles_k3(torch, mesh, leaves, want["k3"], we,
+                                       wa, we_p, wa_p, beta, W, M)
+                torch.cuda.synchronize()
+            c = ops.launch_counts()
+            want_c = {key: 0 for key in c}
+            want_c[kernel] = per_leaf * len(leaves)
+            check(c == want_c, f"mesh tiles {mesh} {name}: launches {c}, "
+                  f"want {want_c}")
+            if name == "k2":
+                k2_variant_check(f"mesh tiles {mesh}", c["fused_select"])
+            counts[f"{mesh} {name}"] = c
+        # one rank's K2 tiles per step: rank (0, 0); the stack rows read
+        # once, the (m,) result written once, the weights read once; fp32
+        # operations as the timing phase counts K2's
+        ms[mesh] = 0.0
+        b_bytes[mesh] = b_ops[mesh] = 0.0
+        for x in leaves:
+            tile = rank_tile(torch, x, W, 0, M, 0)
+            m = tile.shape[1]
+            ms[mesh] += time_ms(torch, lambda: fused_select_cuda(
+                tile, we_p, wa_p, beta), 5 if m > 10_000_000 else 20)
+            b_bytes[mesh] += 4 * (n_pad * m + m + 2 * theta * n_pad) \
+                / HBM_BYTES_PER_S
+            b_ops[mesh] += (4 * theta * n_pad + select_phase_ops(
+                theta, beta)) * m / FP32_FLOP_PER_S
+            del tile
+        log(f"mesh tiles {mesh}: {W * M} ranks x {len(leaves)} leaves "
+            f"(n_pad {n_pad}, weights zero-padded), the ranks of a model "
+            f"index alike; K2 tiles assembled bit for bit the replicated "
+            f"K2; K3 bit for bit its plain version on every route's "
+            f"products and the replicated launch on the replicated "
+            f"products' columns; the route's products differ from the "
+            f"replicated ones in {k3_diff[0]} columns (cuBLAS's kernel for "
+            f"the tile's width; leaves of width {k3_diff[3]}), its outputs "
+            f"in {k3_diff[1]} of them (largest difference "
+            f"{k3_diff[2]:.3e}, within {K3_ROUTE_TOL} x max|x|), bit for "
+            f"bit elsewhere; "
+            f"launches {counts[f'{mesh} k2']} and {counts[f'{mesh} k3']}")
+    ms["replicated"] = 0.0
+    b_bytes["replicated"] = b_ops["replicated"] = 0.0
+    for x in leaves:
+        m = x.shape[1]
+        ms["replicated"] += time_ms(torch, lambda: fused_select_cuda(
+            x, we, wa, beta), 5 if m > 10_000_000 else 20)
+        b_bytes["replicated"] += 4 * (N * m + m + 2 * theta * N) \
+            / HBM_BYTES_PER_S
+        b_ops["replicated"] += (4 * theta * N + select_phase_ops(
+            theta, beta)) * m / FP32_FLOP_PER_S
+    for key in ms:
+        bound[key] = 1e3 * max(b_bytes[key], b_ops[key])
+    bound_by = {key: "bytes" if b_bytes[key] >= b_ops[key] else "operations"
+                for key in ms}
+    log(f"mesh tiles: one rank's K2 tiles per step (ms, CUDA events, the "
+        f"real leaves) {ms}, bounds {bound} ({bound_by})")
+    del grads, leaves, want
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return counts, ms, bound, bound_by
+
+
 class Tee(io.TextIOBase):
     """Writes to the real stdout and keeps a copy."""
 
@@ -1213,11 +1485,13 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True):
+def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True,
+                keep_params=False):
     """One ``train.run`` with every launch count set to 0 just before and
     read just after; each kernel must launch ``want_per_leaf_step[name]``
     times per leaf per step (0: never).  Returns (counts, leaf shapes,
-    records, printed text)."""
+    records, printed text, the final parameters if ``keep_params`` else
+    None)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
@@ -1230,8 +1504,9 @@ def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True):
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
     shapes = [(N,) + tuple(p.shape) for p in tree_leaves(params)]
-    del params
-    torch.cuda.empty_cache()
+    if not keep_params:
+        params = None
+        torch.cuda.empty_cache()
     steps = len(history)
     want_steps = int(argv[argv.index("--steps") + 1])
     check(steps == want_steps, f"{label}: {steps} steps, want {want_steps}")
@@ -1256,18 +1531,94 @@ def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True):
         f"{[round(s, 4) for s in step_s]} (first includes warm-up); wall "
         f"{wall:.1f}s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts, shapes, history, tee.kept.getvalue()
+    return counts, shapes, history, tee.kept.getvalue(), params
 
 
 def training(torch):
-    counts, shapes, history, _ = train_phase(torch, "training", TRAIN_ARGS,
-                                             K1_K2)
-    return counts, shapes, [rec["seconds"] for rec in history]
+    """The training phase; returns (counts, leaf shapes, records, the
+    final parameters), the parameters for the mesh training phase."""
+    counts, shapes, history, _, params = train_phase(
+        torch, "training", TRAIN_ARGS, K1_K2, keep_params=True)
+    return counts, shapes, history, params
+
+
+def same_run(torch, label, hist, params, want_hist, want_params):
+    """Two runs of ``train.run`` alike bit for bit: every step's loss,
+    per-worker losses, selection and byzantine mass, and the parameters
+    after the last step."""
+    from repro_torch.tree import tree_leaves
+    check(len(hist) == len(want_hist), f"{label}: {len(hist)} steps")
+    for i, (a, b) in enumerate(zip(hist, want_hist)):
+        for key in ("loss", "loss_per_worker", "selection", "byz_mass"):
+            check(a[key] == b[key], f"{label} step {i}: {key} {a[key]} "
+                  f"against the replicated run's {b[key]}")
+    pairs = list(zip(tree_leaves(params), tree_leaves(want_params)))
+    check(len(pairs) == len(tree_leaves(want_params)) and
+          all(bits_equal(torch, a, b) for a, b in pairs),
+          f"{label}: parameters after {len(hist)} steps differ from the "
+          f"replicated run's")
+
+
+def mesh_run(torch, label, argv, want_per_leaf_step, kernel, want_hist,
+             want_params):
+    """``train.run`` of ``argv`` with ``--mesh host``: the one-rank NCCL
+    world (1x1) that ``run`` starts and destroys, every ``kernel`` launch
+    (the mesh statistics) on the square kernel's symmetric grid, the mesh
+    line printed, and the run bit for bit the replicated one
+    (:func:`same_run`; at 1x1 the gathered tile is the stack itself).
+    Returns the counts."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    check(not dist.is_initialized(), f"{label}: a process group is up")
+    counts, _, hist, text, params = train_phase(
+        torch, label, argv + ["--mesh", "host"], want_per_leaf_step,
+        keep_params=True)
+    square = ops.square_launch_counts()[kernel]
+    check(square == counts[kernel], f"{label}: {square} of "
+          f"{counts[kernel]} {kernel} launches on the symmetric grid, want "
+          f"all (the 1x1 block is the stack)")
+    check(not dist.is_initialized(), f"{label}: run() left its process "
+          f"group up")
+    line = "[train] mesh=host shape={'data': 1, 'model': 1} (worker axis " \
+        "sharded over data, d over model)"
+    check(line in text, f"{label}: no line {line!r}")
+    same_run(torch, label, hist, params, want_hist, want_params)
+    log(f"{label}: {line}; every {kernel} launch on the symmetric grid; "
+        f"losses, per-worker losses, selections, byzantine mass and the "
+        f"parameters after {len(hist)} steps bit for bit the replicated "
+        f"run's")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_training(torch, want_hist, want_params):
+    """The training phase again with ``--mesh host``: K6 and K2 once per
+    leaf per step (K6 on the symmetric grid), K1 never, bit for bit the
+    training phase.  Returns the counts."""
+    return mesh_run(torch, "mesh training (--mesh host)", TRAIN_ARGS,
+                    MESH_K6_K2, "pairwise_stats_rect", want_hist,
+                    want_params)
+
+
+def mesh_wire_training(torch):
+    """Wire A's flags at 1 layer for 2 steps, replicated (K5 and K2 once
+    per leaf per step), then with ``--mesh host`` (K7 on the symmetric grid
+    and K2, K5 never): bit for bit alike.  Returns the mesh run's counts."""
+    label = "mesh wire (qsgd:bits=8, scale_poison)"
+    _, _, hist, _, params = train_phase(
+        torch, f"{label}, replicated", MESH_WIRE_ARGS, K5_K2,
+        keep_params=True)
+    counts = mesh_run(torch, f"{label}, --mesh host", MESH_WIRE_ARGS,
+                      MESH_K7_K2, "dequant_stats_rect", hist, params)
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def wire_training(torch):
     """Phases A and B; returns phase A's counts (the wire's main path)."""
-    counts, shapes, history, text = train_phase(
+    counts, shapes, history, text, _ = train_phase(
         torch, "wire A (qsgd:bits=8, scale_poison)", WIRE_A_ARGS,
         {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1,
          "coord_select": 0, **NO_MESH_KERNELS})
@@ -1280,7 +1631,7 @@ def wire_training(torch):
     check(all(rec["wire_bytes_per_worker"] == want for rec in history),
           "wire A: the step's container disagrees with the wire line")
     log(f"wire A: {line}")
-    _, _, history_b, _ = train_phase(
+    _, _, history_b, _, _ = train_phase(
         torch, "wire B (signsgd:ef=1, payload_flip)", WIRE_B_ARGS,
         {"pairwise_stats": 0, "fused_select": 1, "dequant_stats": 1,
          "coord_select": 0, **NO_MESH_KERNELS}, zero_byz=False)
@@ -1312,7 +1663,7 @@ def adaptive_training(torch):
     selection[f:] within 1e-6).  The byzantine mass is logged, not gated:
     these attacks are built to be selected.  Returns {phase: counts}."""
     out = {}
-    counts, _, hist, _ = train_phase(
+    counts, _, hist, _, _ = train_phase(
         torch, "adaptive A (adaptive_lie)", ADAPTIVE_A_ARGS, K1_K2,
         zero_byz=False)
     out["adaptive_lie"] = counts
@@ -1332,7 +1683,7 @@ def adaptive_training(torch):
         picked.append(up)
     log(f"adaptive A: z after each step {zs} (up: {picked}), byz_mass "
         f"{[r['byz_mass'] for r in hist]} (logged, not gated)")
-    counts, _, hist, _ = train_phase(
+    counts, _, hist, _, _ = train_phase(
         torch, "adaptive B (adaptive_mimic)", ADAPTIVE_B_ARGS, K1_K2,
         zero_byz=False)
     out["adaptive_mimic"] = counts
@@ -1868,8 +2219,12 @@ def main():
         worst_rect = rect_vs_square(torch)
         log(f"kernels vs plain versions: {time.perf_counter() - t0:.1f}s; "
             f"K5 worst relative error {worst_k5['max_rel']:.3e}")
-        counts, shapes, step_s = training(torch)
+        counts, shapes, history, params = training(torch)
+        step_s = [rec["seconds"] for rec in history]
+        counts_mesh_train = mesh_training(torch, history, params)
+        del params
         counts_wire, wire_s = wire_training(torch)
+        counts_mesh_wire = mesh_wire_training(torch)
         real_wire_k5(torch, worst_k5)
         worst_k3 = k3_vs_plain(torch)
         counts_k3, held, n_diff = two_step_substrate(torch)
@@ -1877,7 +2232,10 @@ def main():
         counts_phase = {"training": counts, **adaptive_training(torch)}
         counts_phase["checkpoint"], *_ = checkpoint_phase(torch, power)
         counts_phase["quickstart"] = quickstart(torch)
+        counts_phase["mesh_training"] = counts_mesh_train
+        counts_phase["mesh_wire"] = counts_mesh_wire
         counts_mesh = mesh_statistics(torch)
+        counts_tiles, tile_ms, tile_bound, tile_bound_by = mesh_tiles(torch)
         tot = timing(torch, shapes, worst_k5)
         tot_mesh = mesh_timing(torch, shapes)
         log(f"K5 worst relative error over every check: "
@@ -1932,12 +2290,18 @@ def main():
          "source": "src/repro_torch/csrc/fused_select.cu",
          "replaces": "src/repro/kernels/fused_select.py:142",
          "launches": counts["fused_select"],
-         "launches_by_phase": {k: c["fused_select"]
-                               for k, c in counts_phase.items()},
+         "launches_by_phase": {
+             **{k: c["fused_select"] for k, c in counts_phase.items()},
+             **{f"mesh_tiles {k.split()[0]}": c["fused_select"]
+                for k, c in counts_tiles.items() if k.endswith("k2")}},
          "max_abs_err": worst["fused_select"],
          "ms": tot["k2"], "plain_ms": tot["k2_plain"],
          "bound_ms": tot["k2_bound"], "bound_by": tot["k2_bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         # one rank's launches on its (12, d/M) tiles of the real leaves,
+         # per step, beside the replicated launch on the same leaves
+         "tile_ms": tile_ms, "tile_bound_ms": tile_bound,
+         "tile_bound_by": tile_bound_by},
         {"name": "dequant_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/dequant_stats.cu",
          "replaces": "src/repro/kernels/dequant_stats.py:90",
@@ -1950,6 +2314,10 @@ def main():
          "source": "src/repro_torch/csrc/coord_select.cu",
          "replaces": "src/repro/kernels/coord_select.py:50",
          "launches": counts_k3["coord_select"],
+         "launches_by_phase": {
+             "two_step": counts_k3["coord_select"],
+             **{f"mesh_tiles {k.split()[0]}": c["coord_select"]
+                for k, c in counts_tiles.items() if k.endswith("k3")}},
          "max_abs_err": worst_k3,
          "ms": tot["k3"], "plain_ms": tot["k3_plain"],
          "bound_ms": tot["k3_bound"], "bound_by": tot["k3_bound_by"],
@@ -1965,6 +2333,9 @@ def main():
          "grid": "symmetric (stats_tile.cuh): 1x1 mesh, the block is the "
                  "stack",
          "launches": counts_mesh["tree"]["pairwise_stats_rect"],
+         "launches_by_phase": {
+             "mesh_statistics": counts_mesh["tree"]["pairwise_stats_rect"],
+             "mesh_training": counts_mesh_train["pairwise_stats_rect"]},
          "max_abs_err": worst_rect["pairwise_stats_rect"],
          "ms": tot_mesh["k6_1x1"], "plain_ms": tot_mesh["k6_1x1_plain"],
          "bound_ms": tot_mesh["k6_1x1_bound"],
@@ -1988,6 +2359,9 @@ def main():
          "grid": "symmetric (stats_tile.cuh): 1x1 mesh, the block is the "
                  "payload",
          "launches": counts_mesh["wire"]["dequant_stats_rect"],
+         "launches_by_phase": {
+             "mesh_statistics": counts_mesh["wire"]["dequant_stats_rect"],
+             "mesh_wire": counts_mesh_wire["dequant_stats_rect"]},
          "max_abs_err": worst_rect["dequant_stats_rect"],
          "ms": tot_mesh["k7_1x1_int8"],
          "plain_ms": tot_mesh["k7_1x1_plain_int8"],
@@ -2017,6 +2391,9 @@ def main():
          "bound_by": tot_mesh["k4_bound_by"],
          "library_ms": tot_mesh["k4_lib"]},
     ]
+    log(f"mesh apply tiles, one rank's K2 per step: " + ", ".join(
+        f"{k} {tile_ms[k]:.4f} ms (bound {tile_bound[k]:.4f}, "
+        f"{tile_bound_by[k]})" for k in tile_ms) + f"; card {power}")
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
         f"{wire_s}; whole run {time.perf_counter() - t_main:.1f}s (the "
         f"kernels' build included)")

@@ -24,12 +24,15 @@ and the apply decodes first.  The pre-aggregation transforms (worker
 momentum, clipping, nearest-neighbour mixing) rewrite the stack before the
 rule.
 
-With a :class:`MeshContext` the statistics run mesh-native on a
-``torch.distributed`` ``DeviceMesh`` (the JAX package's DESIGN.md §10):
-each rank passes its :class:`RowBlock` of the stack, computes only its
-rows of the (n, n) matrix (K6 / K7 under ``use_kernels``), and the
-blocks are gathered into the replicated statistics every rank's plan
-needs.  The mesh branch of the apply is not ported yet.
+With a :class:`MeshContext` the statistics and the apply run mesh-native
+on a ``torch.distributed`` ``DeviceMesh`` (the JAX package's DESIGN.md
+§10): each rank passes its :class:`RowBlock` of the stack.  The
+statistics compute only the rank's rows of the (n, n) matrix (K6 / K7
+under ``use_kernels``), gathered into the replicated statistics every
+rank's plan needs; the apply gathers the rank's (n_pad, d/M) column tile
+of each leaf over the worker group, applies the plan to it (K2, or the
+products and K3, under ``use_kernels``) and gathers the tiles' results
+over the model group, so every rank returns the whole aggregate.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ from repro_torch.core import attacks as ATK
 from repro_torch.core import gar as G
 from repro_torch.core import theory
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
 Tree = Any
@@ -343,36 +346,45 @@ def column_tile(block: RowBlock, ctx: MeshContext) -> RowBlock:
     each leaf flattened and zero-padded to a multiple of M columns: the
     input of :func:`sharded_raw_stats_model_axis` (the model axis of
     ``grad_stack_specs``)."""
+    return RowBlock(rows=tree_map(lambda x: _tile2d(_leaf2d(x), ctx),
+                                  block.rows), n=block.n)
+
+
+def _tile2d(x2: Tensor, ctx: MeshContext) -> Tensor:
+    """This rank's contiguous (rows, m) column tile of (rows, numel) rows,
+    zero-padded to M m columns, m = ceil(numel / M); at M = 1 a contiguous
+    ``x2`` itself, with no copy."""
     M, k = ctx.model_size, ctx.model_index
-
-    def tile(x):
-        x2 = _leaf2d(x)
-        m = -(-x2.shape[1] // M)
+    m = -(-x2.shape[1] // M)
+    if M * m != x2.shape[1]:
         x2 = torch.nn.functional.pad(x2, (0, M * m - x2.shape[1]))
-        return x2[:, k * m:(k + 1) * m].contiguous()
-
-    return RowBlock(rows=tree_map(tile, block.rows), n=block.n)
+    return x2[:, k * m:(k + 1) * m].contiguous()
 
 
 def _row_block_arg(grads) -> RowBlock:
     if not isinstance(grads, RowBlock):
-        raise TypeError(f"the mesh-native statistics take this rank's "
-                        f"RowBlock (core.api.row_block), got "
-                        f"{type(grads).__name__}")
+        raise TypeError(f"the mesh-native path takes this rank's RowBlock "
+                        f"(core.api.row_block), got {type(grads).__name__}")
     return grads
+
+
+def _all_gather(x: Tensor, group, size: int) -> Tensor:
+    """Every group member's ``x`` stacked along axis 0 in group-rank
+    order (one all-gather)."""
+    x = x.contiguous()
+    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+    # newer torch names it all_gather_single and warns on the old name
+    # (2.13 does); older releases have only all_gather_into_tensor (2.11)
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, x, group=group)
+    return out
 
 
 def _gather_rows(x: Tensor, ctx: MeshContext) -> Tensor:
     """Every worker shard's rows of ``x``, stacked in worker order (one
     all-gather over the worker group)."""
-    x = x.contiguous()
-    out = x.new_empty((ctx.worker_size * x.shape[0],) + tuple(x.shape[1:]))
-    # newer torch names it all_gather_single and warns on the old name
-    # (2.13 does); older releases have only all_gather_into_tensor (2.11)
-    gather = getattr(dist, "all_gather_single", None) or \
-        dist.all_gather_into_tensor
-    gather(out, x, group=ctx.worker_group)
-    return out
+    return _all_gather(x, ctx.worker_group, ctx.worker_size)
 
 
 def _block_stats_contrib(x_loc: Tensor, x_full: Tensor
@@ -597,6 +609,101 @@ def _bulyan_leaf(w_ext: Tensor, w_agr: Tensor, beta: int, leaf: Tensor,
     return G.bulyan_coordinate_phase(g_ext, g_agr, beta).to(leaf.dtype)
 
 
+def _pad_cols(w: Tensor, n_pad: int) -> Tensor:
+    """fp32 weights over the worker axis (last), zero-padded to n_pad."""
+    w = w.float()
+    return torch.nn.functional.pad(w, (0, n_pad - w.shape[-1]))
+
+
+def _sharded_apply_leaf(plan: AggPlan, x_loc: Tensor, ctx: MeshContext,
+                        coordinate_fn=None, *, use_kernels: bool = False,
+                        fused: "bool | str" = True,
+                        row_mult: Optional[Tensor] = None) -> Tensor:
+    """Mesh-native apply of one plan to this rank's rows of one leaf
+    (the JAX package's DESIGN.md §10): the (numel,) fp32 aggregate, the
+    same on every rank.
+
+    The rank takes the column tile of its (n_loc, numel) rows that its
+    model index owns (zero-padded to M ceil(numel / M) columns, as
+    :func:`column_tile` cuts it) and gathers it over the worker group
+    into the (n_pad, d/M) tile of the stack, the one worker-to-model
+    reshard of the pipeline: no rank holds more than that of the leaf.
+    The plan runs on the tile, and the (d/M,) results are gathered over
+    the model group in model-index order.  Per plan kind: ``mean`` sums
+    the rows over n; ``weighted`` and ``bulyan`` take their weights
+    zero-padded to n_pad (a zero row adds 0 x 0 to every contraction),
+    ``bulyan`` under ``use_kernels`` one K2 launch on the tile with
+    ``fused``, else two matrix products and one K3 launch; ``coordinate``
+    (median, trimmed mean) takes the tile's first n rows, since zero
+    padding must never enter an order statistic.
+
+    With ``row_mult`` the rows are a wire payload (int8 / bf16) and
+    ``row_mult`` its (n_loc,) fp32 dequant multipliers, gathered beside
+    the tile: the gathered tile is dequantised as the codec's decode
+    does it (``comm.codecs._scaled_rows``: widen, one rounded multiply),
+    so its fp32 values are the decode's bit for bit.
+    """
+    n, kind = plan.n, plan.kind
+    if kind not in ("mean", "weighted", "bulyan", "coordinate"):
+        raise ValueError(f"unknown plan kind {kind!r}")
+    _, n_loc = worker_rows(n, ctx)
+    x2 = _leaf2d(x_loc)
+    if x2.shape[0] != n_loc:
+        raise ValueError(f"a row block of {n} workers on {ctx.worker_size} "
+                         f"worker shards has {n_loc} rows, got "
+                         f"{x2.shape[0]}")
+    numel = x2.shape[1]
+    if row_mult is None:
+        x2 = x2.float()
+    full = _gather_rows(_tile2d(x2, ctx), ctx)              # (n_pad, m)
+    if row_mult is not None:
+        mult = _gather_rows(row_mult.float(), ctx)
+        full = full.float() * mult[:, None]
+    n_pad = full.shape[0]
+    if kind == "coordinate":
+        out = coordinate_fn(plan, full[:n])
+    elif kind == "mean":
+        out = torch.sum(full, dim=0) / n
+    elif kind == "weighted":
+        out = _weighted_mean_leaf(_pad_cols(plan.weights, n_pad), full)
+    else:
+        out = _bulyan_leaf(_pad_cols(plan.w_ext, n_pad),
+                           _pad_cols(plan.w_agr, n_pad), plan.beta, full,
+                           use_kernels=use_kernels, fused=fused)
+    if ctx.model_group is not None:
+        out = _all_gather(out, ctx.model_group, ctx.model_size)
+    return out[:numel]
+
+
+def _sharded_apply_encoded(plan: AggPlan, enc: EncodedGrads,
+                           ctx: MeshContext, coordinate_fn=None, *,
+                           use_kernels: bool = False,
+                           fused: "bool | str" = True) -> Tree:
+    """Mesh-native apply of one plan to this rank's rows of a wire
+    container: fp32 leaves of the original shapes.  A leaf whose codec has
+    the dequant form (``Codec.dequant_form``: int8 / bf16 payload x one
+    multiplier a row) gathers its payload tile and multipliers and
+    dequantises per tile, so no rank decodes more than (n_pad, d/M) of it;
+    top-k and identity leaves decode the rank's rows first."""
+    from repro_torch.comm import codecs as CC
+    codec = CC.get_codec(enc.spec)
+    out = []
+    for p, s, shape in zip(tree_leaves(enc.payload), CC.sidecar_leaves(enc),
+                           enc.shapes):
+        form = codec.dequant_form(p, s)
+        if form is not None:
+            rows, mult = form
+            o = _sharded_apply_leaf(plan, rows, ctx, coordinate_fn,
+                                    use_kernels=use_kernels, fused=fused,
+                                    row_mult=mult)
+        else:
+            o = _sharded_apply_leaf(plan, codec.decode_leaf(p, s, shape),
+                                    ctx, coordinate_fn,
+                                    use_kernels=use_kernels, fused=fused)
+        out.append(o.reshape(tuple(shape[1:])))
+    return tree_unflatten(enc.payload, out)
+
+
 # ==========================================================================
 # the Aggregator protocol + registry
 # ==========================================================================
@@ -619,11 +726,35 @@ class Aggregator:
         raise NotImplementedError
 
     def apply(self, plan: AggPlan, grads: Tree, *, coord_chunk: int = 0,
-              use_kernels: bool = False, fused: "bool | str" = True) -> Tree:
+              use_kernels: bool = False, fused: "bool | str" = True,
+              mesh_ctx: Optional[MeshContext] = None) -> Tree:
         """Plan application, shared across rules, dispatched on plan.kind.
         A wire container is decoded first: the apply mixes values across
         workers, so it runs on the decoded fp32 rows.  ``coord_chunk`` and
-        ``fused`` pick a bulyan plan's substrate (:func:`_bulyan_leaf`)."""
+        ``fused`` pick a bulyan plan's substrate (:func:`_bulyan_leaf`).
+
+        With ``mesh_ctx`` the apply runs mesh-native: ``grads`` is this
+        rank's :class:`RowBlock` of a tree or a wire container, each rank
+        applies the plan to its column tile of every leaf
+        (:func:`_sharded_apply_leaf`, in sorted key-path order, so every
+        rank reaches the collectives in the same order; a wire leaf with
+        the dequant form is dequantised per tile,
+        :func:`_sharded_apply_encoded`), and every rank returns the whole
+        aggregate.  ``coord_chunk`` has no meaning there: each rank's tile
+        is one piece already."""
+        if mesh_ctx is not None:
+            block = _row_block_arg(grads)
+            if block.n != plan.n:
+                raise ValueError(f"the plan is for n={plan.n} workers, the "
+                                 f"row block for n={block.n}")
+            kw = dict(coordinate_fn=self._coordinate_leaf,
+                      use_kernels=use_kernels, fused=fused)
+            enc = _as_encoded(block.rows)
+            if enc is not None:
+                return _sharded_apply_encoded(plan, enc, mesh_ctx, **kw)
+            return tree_map(lambda x: _sharded_apply_leaf(
+                plan, x, mesh_ctx, **kw).reshape(tuple(x.shape[1:])).to(
+                    x.dtype), block.rows)
         enc = _as_encoded(grads)
         if enc is not None:
             from repro_torch.comm import codecs as CC
@@ -645,18 +776,23 @@ class Aggregator:
         raise NotImplementedError
 
     def __call__(self, grads: Tree, f: int, *, dists: Optional[Tensor] = None,
-                 coord_chunk: int = 0, use_kernels: bool = False) -> Tree:
-        """stats -> validate -> plan -> apply in one call."""
+                 coord_chunk: int = 0, use_kernels: bool = False,
+                 mesh_ctx: Optional[MeshContext] = None) -> Tree:
+        """stats -> validate -> plan -> apply in one call (mesh-native
+        with ``mesh_ctx``: ``grads`` is this rank's :class:`RowBlock`)."""
         stats = compute_stats(grads, f, needs_dists=self.needs_dists,
-                              use_kernels=use_kernels, dists=dists)
+                              use_kernels=use_kernels, dists=dists,
+                              mesh_ctx=mesh_ctx)
         self.validate(stats.n, stats.f)
         return self.apply(self.plan(stats), grads, coord_chunk=coord_chunk,
-                          use_kernels=use_kernels)
+                          use_kernels=use_kernels, mesh_ctx=mesh_ctx)
 
 
 @dataclasses.dataclass(frozen=True)
 class AggregatorBackend:
-    """One bound stats→validate→plan→apply pipeline (the trainer's)."""
+    """One bound stats→validate→plan→apply pipeline (the trainer's).
+    With ``mesh_ctx`` the statistics and the apply run mesh-native: both
+    then take this rank's :class:`RowBlock`."""
 
     gar: str
     f: int
@@ -664,6 +800,7 @@ class AggregatorBackend:
     coord_chunk: int = 0
     fused: "bool | str" = True
     needs_dists: bool = False          # force stats for distance-free rules
+    mesh_ctx: Optional[MeshContext] = None
 
     @classmethod
     def for_config(cls, rcfg, **overrides) -> "AggregatorBackend":
@@ -681,7 +818,8 @@ class AggregatorBackend:
         return compute_stats(
             grads, self.f,
             needs_dists=self.aggregator.needs_dists or self.needs_dists,
-            use_kernels=self.use_kernels, dists=dists)
+            use_kernels=self.use_kernels, dists=dists,
+            mesh_ctx=self.mesh_ctx)
 
     def plan(self, stats: AggStats) -> AggPlan:
         """Validate + selection on the statistics only."""
@@ -693,7 +831,8 @@ class AggregatorBackend:
         return self.aggregator.apply(plan, grads,
                                      coord_chunk=self.coord_chunk,
                                      use_kernels=self.use_kernels,
-                                     fused=self.fused)
+                                     fused=self.fused,
+                                     mesh_ctx=self.mesh_ctx)
 
 
 REGISTRY: Dict[str, Aggregator] = {}
@@ -845,14 +984,18 @@ class MultiBulyan(_BulyanFamily):
 def aggregate_tree(grads: Tree, f: int, name: str = "multi_bulyan", *,
                    coord_chunk: int = 0, use_kernels: bool = False,
                    fused: "bool | str" = True,
-                   dists: Optional[Tensor] = None) -> Tree:
-    """Aggregate a stacked gradient tree with the named registered rule."""
+                   dists: Optional[Tensor] = None,
+                   mesh_ctx: Optional[MeshContext] = None) -> Tree:
+    """Aggregate a stacked gradient tree with the named registered rule;
+    mesh-native with ``mesh_ctx``, where ``grads`` is this rank's
+    :class:`RowBlock` and every rank returns the whole aggregate."""
     agg = get_aggregator(name)
     stats = compute_stats(grads, f, needs_dists=agg.needs_dists,
-                          use_kernels=use_kernels, dists=dists)
+                          use_kernels=use_kernels, dists=dists,
+                          mesh_ctx=mesh_ctx)
     agg.validate(stats.n, stats.f)
     return agg.apply(agg.plan(stats), grads, coord_chunk=coord_chunk,
-                     use_kernels=use_kernels, fused=fused)
+                     use_kernels=use_kernels, fused=fused, mesh_ctx=mesh_ctx)
 
 
 def aggregate_matrix(Gm: Tensor, f: int, name: str = "multi_bulyan", *,

@@ -21,15 +21,18 @@ One train step:
    under a codec with no transform one K5 launch per int8 / bf16 wire
    leaf (straight off the payloads), and a bulyan apply one K2 launch per
    leaf on the (decoded, transformed) stack — or, with ``coord_chunk``,
-   the two-step substrate, one K3 launch per column slice;
+   the two-step substrate, one K3 launch per column slice.  On a mesh
+   (``shard_map_mesh``) the three run mesh-native on this rank's row
+   block: K6 (K7 off the wire) per leaf for the statistics, K2 per leaf
+   on the rank's column tile for the apply;
 6. one optimizer update from the aggregated gradient.
 
 The step has signature ``(params, state, batch, seed) -> (params, state,
 metrics)``; ``state`` is a :class:`TrainerState` (``opt``; ``tstates``,
 one entry per transform; ``astate``, the adaptive attack's feedback
 state; ``cres``, the error-feedback residual, under an ``ef=1`` codec).
-The mesh, hierarchical and observability options of the JAX trainer are
-not ported yet.
+The hierarchical and observability options of the JAX trainer are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -142,6 +145,23 @@ def _resolve_codec(codec) -> Optional[CM.Codec]:
     return CM.get_codec(codec) if isinstance(codec, str) else codec
 
 
+def _derive_mesh_ctx(shard_map_mesh, shard_map_axes, spmd
+                     ) -> Optional[api.MeshContext]:
+    """Resolve the (mesh, axes, spmd) trio the trainer accepts, as the JAX
+    trainer does: ``spmd=None`` turns the mesh-native path on whenever a
+    mesh is given; ``shard_map_axes`` overrides the worker axes derived
+    from the mesh's axis names."""
+    if spmd is None:
+        spmd = shard_map_mesh is not None
+    if not spmd:
+        return None
+    if shard_map_mesh is None:
+        raise ValueError("spmd aggregation needs shard_map_mesh")
+    return api.MeshContext.for_mesh(
+        shard_map_mesh,
+        worker_axes=tuple(shard_map_axes) if shard_map_axes else None)
+
+
 def init_train_state(opt: Optimizer, params: Tree,
                      transforms: Sequence[api.Transform] = (), *,
                      n_workers: int = 0, attack: str = "none",
@@ -216,7 +236,9 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     attack: str = "none", attack_f: Optional[int] = None,
                     transforms: Sequence[api.Transform] = (),
                     codec=None, coord_chunk: int = 0,
-                    telemetry: bool = False):
+                    telemetry: bool = False, shard_map_mesh=None,
+                    shard_map_axes: Optional[Sequence[str]] = None,
+                    spmd: Optional[bool] = None):
     """Build the stacked-trainer step.
 
     ``attack`` is a spec string (``core.attacks.get_attack``, or a wire
@@ -245,6 +267,19 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     With ``telemetry`` the metrics gain a ``"telemetry"`` dict of plan
     diagnostics (``selection``, ``byz_mass``, score fields) plus
     ``honest_dev`` and, under a codec, ``wire_bytes_per_worker``.
+
+    ``shard_map_mesh`` (a ``torch.distributed`` ``DeviceMesh`` from
+    ``launch.mesh.make_host_mesh``; the JAX trainer's names, with
+    ``shard_map_axes`` and ``spmd``: :func:`_derive_mesh_ctx`) makes the
+    aggregation mesh-native.  Every rank runs the forward/backward, the
+    attack, the codec and the transforms on the whole stack with the same
+    seeds, exactly as without a mesh; then it cuts its
+    ``core.api.row_block`` of the statistics' input (the wire container
+    unless a transform rewrote the stack) and of the decoded stack, and
+    stats → plan → apply run on those blocks
+    (``core.api.AggregatorBackend`` with ``mesh_ctx``), every rank getting
+    the whole aggregate.  So every attack, the adaptive state, the
+    ``ef=1`` residual and the transforms compose with the mesh unchanged.
     """
     rcfg.validate()
     transforms = tuple(transforms)
@@ -265,9 +300,15 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
         adaptive, attack_fn = ATK.get_adaptive(attack), None
     else:
         attack_fn = ATK.get_attack(attack)
+    mesh_ctx = _derive_mesh_ctx(shard_map_mesh, shard_map_axes, spmd)
     # telemetry wants the score spectrum even for distance-free rules
     backend = api.AggregatorBackend.for_config(
-        rcfg, coord_chunk=coord_chunk, needs_dists=telemetry)
+        rcfg, coord_chunk=coord_chunk, needs_dists=telemetry,
+        mesh_ctx=mesh_ctx)
+
+    def rows(g):
+        """What the backend takes: this rank's row block on a mesh."""
+        return g if mesh_ctx is None else api.row_block(g, mesh_ctx)
 
     def step(params, state: TrainerState, batch, seed: int = 0):
         losses, grads = per_worker_grads(params, cfg, batch, window=window,
@@ -303,9 +344,9 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
             # transform rewrote the decoded stack
             stats_src = enc if (enc is not None and not transforms) \
                 else grads
-            stats = backend.stats(stats_src)
+            stats = backend.stats(rows(stats_src))
             plan = backend.plan(stats)
-            agg = backend.apply(plan, grads)
+            agg = backend.apply(plan, rows(grads))
             if adaptive is not None:
                 astate = adaptive.update(astate, plan.selection_weights())
             lr = lr_fn(state.opt.step)

@@ -3,7 +3,11 @@
 Runs byzantine-robust training of a dense architecture on one device:
 ``cuda`` unless ``--device cpu`` is passed (a missing GPU raises; nothing
 falls back).  ``--layers`` cuts the depth while keeping the published
-widths; ``--reduced`` takes the smoke-scale variant.
+widths; ``--reduced`` takes the smoke-scale variant.  ``--mesh host``
+runs the aggregation mesh-native on ``launch.mesh.make_host_mesh``: a
+world of one rank (an in-process store), or every rank of a
+``torchrun`` launch (one process a card, ``env://``); only rank 0
+prints and writes ``--ckpt-dir``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
@@ -15,6 +19,8 @@ Usage:
       --layers 2 --steps 3 --codec qsgd:bits=8 --attack scale_poison
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 3 --seq 16 --attack adaptive_lie --ckpt-dir ckpt
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen2-1.5b --layers 2 --steps 3 --mesh host
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import models as MD
 from repro_torch.checkpoint import save
@@ -32,6 +39,7 @@ from repro_torch.configs import ARCH_NAMES, RobustConfig, get_config
 from repro_torch.data import lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist import init_train_state, make_train_step, split_workers
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.tree import tree_leaves
 
@@ -64,6 +72,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="none", choices=("none", "host"),
+                    help="run aggregation mesh-native: 'host' factors the "
+                         "ranks of the torch.distributed world (one, or "
+                         "torchrun's) into a (data, model) mesh, the "
+                         "worker axis sharded over data, d over model")
     ap.add_argument("--ckpt-dir", default=None,
                     help="save {'params': ...} here after the last step "
                          "(repro_torch.checkpoint, the JAX package's "
@@ -75,13 +88,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def run(argv: Optional[Sequence[str]] = None
         ) -> Tuple[Any, List[Dict[str, Any]]]:
     """Train as the flags say.  Returns the final parameters and one record
-    per step (``loss``, ``loss_per_worker``, ``byz_mass``, ``honest_dev``,
-    ``agg_grad_norm``, ``lr``, ``seconds``; under a codec also
-    ``wire_bytes_per_worker`` and, with ``ef=1``, ``residual_max_abs``,
-    the largest magnitude in the error-feedback residual after the
-    step; under an adaptive attack also ``astate``, the attack's state
-    after the step as host floats and lists, and ``selection``, the
-    plan's (n,) selection weights)."""
+    per step (``loss``, ``loss_per_worker``, ``byz_mass``, ``selection``,
+    the plan's (n,) selection weights, ``honest_dev``, ``agg_grad_norm``,
+    ``lr``, ``seconds``; under a codec also ``wire_bytes_per_worker`` and,
+    with ``ef=1``, ``residual_max_abs``, the largest magnitude in the
+    error-feedback residual after the step; under an adaptive attack also
+    ``astate``, the attack's state after the step as host floats and
+    lists).  Under ``--mesh host`` every rank
+    returns them; a process group that ``run`` started is destroyed when
+    it returns or raises, one that was up before is left up."""
     args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -94,6 +109,25 @@ def run(argv: Optional[Sequence[str]] = None
     rcfg = RobustConfig(n_workers=args.workers, f=args.f, gar=args.gar,
                         use_kernels=args.use_kernels)
     device = resolve_device(args.device)
+    started = args.mesh == "host" and not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device) if args.mesh == "host" else None
+        return _train(args, cfg, rcfg, device, mesh)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
+           device: torch.device, mesh) -> Tuple[Any, List[Dict[str, Any]]]:
+    """:func:`run` once the flags are checked and the mesh (or None) is
+    up."""
+    lead = mesh is None or dist.get_rank() == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
     opt = make_optimizer(args.optimizer,
                          **({"momentum": 0.9} if args.optimizer == "sgd"
                             else {}))
@@ -104,19 +138,22 @@ def run(argv: Optional[Sequence[str]] = None
     step_fn = make_train_step(cfg, rcfg, opt, lr_fn,
                               chunk_q=min(args.seq, 512),
                               attack=args.attack, codec=args.codec,
-                              telemetry=True)
+                              telemetry=True, shard_map_mesh=mesh)
     params = MD.init_model(cfg, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"[train] arch={cfg.name} layers={cfg.n_layers} "
-          f"params={n_params:,} device={device} workers={args.workers} "
-          f"f={args.f} gar={args.gar} attack={args.attack} "
-          f"codec={args.codec} kernels={args.use_kernels}", flush=True)
+    say(f"[train] arch={cfg.name} layers={cfg.n_layers} "
+        f"params={n_params:,} device={device} workers={args.workers} "
+        f"f={args.f} gar={args.gar} attack={args.attack} "
+        f"codec={args.codec} kernels={args.use_kernels}")
+    if mesh is not None:
+        shape = dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+        say(f"[train] mesh={args.mesh} shape={shape} (worker axis sharded "
+            f"over data, d over model)")
     if args.codec:
         ws = wire_stats(args.codec, params, n=args.workers)
-        print(f"[train] wire: {ws.bytes_per_worker:,} B/worker/step "
-              f"({ws.compression:.1f}x vs fp32, "
-              f"{ws.chunks_per_worker} chunk(s) of {ws.chunk_bytes:,} B)",
-              flush=True)
+        say(f"[train] wire: {ws.bytes_per_worker:,} B/worker/step "
+            f"({ws.compression:.1f}x vs fp32, "
+            f"{ws.chunks_per_worker} chunk(s) of {ws.chunk_bytes:,} B)")
     state = init_train_state(opt, params, n_workers=args.workers,
                              attack=args.attack, attack_f=args.f,
                              codec=args.codec)
@@ -135,6 +172,7 @@ def run(argv: Optional[Sequence[str]] = None
         rec = {"loss": float(metrics["loss"]),
                "loss_per_worker": metrics["loss_per_worker"].tolist(),
                "byz_mass": float(tel["byz_mass"]),
+               "selection": tel["selection"].tolist(),
                "honest_dev": float(tel["honest_dev"]),
                "agg_grad_norm": float(metrics["agg_grad_norm"]),
                "lr": float(metrics["lr"]), "seconds": seconds}
@@ -142,20 +180,19 @@ def run(argv: Optional[Sequence[str]] = None
             rec["wire_bytes_per_worker"] = tel["wire_bytes_per_worker"]
         if state.astate is not None:
             rec["astate"] = {k: v.tolist() for k, v in state.astate.items()}
-            rec["selection"] = tel["selection"].tolist()
         if state.cres is not None:
             rec["residual_max_abs"] = max(
                 float(torch.max(torch.abs(r))) for r in tree_leaves(state.cres))
         history.append(rec)
         if i % args.log_every == 0 or i == args.steps - 1:
-            print(f"[train] step {i:5d} loss {rec['loss']:.4f} "
-                  f"byz_mass {rec['byz_mass']:.4f} lr {rec['lr']:.2e} "
-                  f"({seconds:.3f}s)", flush=True)
-    if args.ckpt_dir:
+            say(f"[train] step {i:5d} loss {rec['loss']:.4f} "
+                f"byz_mass {rec['byz_mass']:.4f} lr {rec['lr']:.2e} "
+                f"({seconds:.3f}s)")
+    if args.ckpt_dir and lead:
         path = save(args.ckpt_dir, args.steps, {"params": params})
-        print(f"[train] checkpoint -> {path}", flush=True)
-    print(f"[train] done: final loss {history[-1]['loss']:.4f}"
-          if history else "[train] done: no steps", flush=True)
+        say(f"[train] checkpoint -> {path}")
+    say(f"[train] done: final loss {history[-1]['loss']:.4f}"
+        if history else "[train] done: no steps")
     return params, history
 
 

@@ -1,7 +1,9 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
 CPU: fail-fast probes before any step, the paper's contrast under the
-``inf`` attack (finite under multi_bulyan, blown up under average), and
-the compressed wire (``--codec``) with its byte line held to JAX's."""
+``inf`` attack (finite under multi_bulyan, blown up under average), the
+compressed wire (``--codec``) with its byte line held to JAX's, and
+``--mesh host`` in a one-rank gloo world (the process group it starts is
+gone after ``run``, one started before it is left up)."""
 import math
 import os
 import subprocess
@@ -9,6 +11,7 @@ import sys
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch import train
 
@@ -139,3 +142,45 @@ def test_error_feedback_run_records_a_nonzero_residual(capsys):
     for rec in hist:
         assert math.isfinite(rec["loss"])
         assert 0.0 < rec["residual_max_abs"] < math.inf
+
+
+def test_mesh_host_prints_the_mesh_line_and_trains_as_without(capsys):
+    """A one-rank gloo world (1x1): JAX's mesh line, and the losses of the
+    same run without ``--mesh``; the process group is gone after."""
+    flags = ["--steps", "2", "--workers", "11", "--f", "2", "--attack",
+             "sign_flip"]
+    (_, mesh), out = _run(capsys, *flags, "--mesh", "host")
+    assert not dist.is_initialized()
+    assert "[train] mesh=host shape={'data': 1, 'model': 1} (worker axis " \
+        "sharded over data, d over model)" in out
+    (_, plain), out = _run(capsys, *flags)
+    assert "mesh=" not in out
+    for a, b in zip(mesh, plain):
+        assert a["loss"] == b["loss"]
+        assert a["loss_per_worker"] == b["loss_per_worker"]
+        assert a["byz_mass"] == b["byz_mass"]
+        assert a["selection"] == b["selection"]
+
+
+def test_mesh_production_is_refused_by_argparse(capsys):
+    with pytest.raises(SystemExit) as e:
+        train.parse_args(["--mesh", "production"])
+    assert e.value.code == 2
+    assert "invalid choice: 'production'" in capsys.readouterr().err
+
+
+def test_mesh_run_that_raises_still_destroys_its_group(capsys):
+    with pytest.raises(KeyError, match="unknown codec"):
+        _run(capsys, "--mesh", "host", "--codec", "zstd")
+    assert not dist.is_initialized()
+
+
+def test_mesh_run_leaves_a_group_it_did_not_start(capsys):
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        (_, hist), out = _run(capsys, "--steps", "1", "--mesh", "host")
+        assert len(hist) == 1 and "[train] mesh=host" in out
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()

@@ -88,6 +88,13 @@ def test_the_mesh_worker_imports_no_jax():
     test_no_jax_or_reference_import(REPO / "tests" / "_torch_mesh_worker.py")
 
 
+def test_the_mesh_apply_worker_imports_no_jax():
+    """The spawned ranks of ``tests/test_torch_mesh_apply.py`` import the
+    port only."""
+    test_no_jax_or_reference_import(
+        REPO / "tests" / "_torch_mesh_apply_worker.py")
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -167,9 +167,10 @@ def _port_inputs(inputs):
     return ttrees, twires
 
 
-def _spawn(world, tmp, inputs_path, deadline):
-    """Run the ``world`` ranks as processes; returns each rank's saved
-    results.  Kills them all if one fails or the deadline passes."""
+def _spawn(world, tmp, inputs_path, deadline, worker=WORKER):
+    """Run the ``world`` ranks of ``worker`` as processes; returns each
+    rank's saved results.  Kills them all if one fails or the deadline
+    passes."""
     store = tmp / f"store{world}"
     outs = [tmp / f"out{world}_{r}.pt" for r in range(world)]
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -177,7 +178,7 @@ def _spawn(world, tmp, inputs_path, deadline):
                 "MASTER_PORT"):
         env.pop(key, None)
     procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(world), str(store),
+        [sys.executable, str(worker), str(r), str(world), str(store),
          str(inputs_path), str(outs[r])], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
