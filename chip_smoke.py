@@ -44,7 +44,19 @@ Phases; any failure exits non-zero and no result line is printed:
    per leaf per step, K1 never; the mesh line printed, no process group
    left up, and every step's loss, per-worker losses, selection and
    byzantine mass and the parameters after the last step bit for bit the
-   training phase's;
+   training phase's.
+   Then the streaming trainer (``--trainer stream_global|stream_block``,
+   one parameter block's gradient stack at a time): streaming global at
+   the training configuration, K1 and K2 once per leaf per step and
+   nothing else, bit for bit the training phase (as above), its peak
+   device memory at least 2 GiB below the training phase's (the groups
+   block's stack it never holds beside the embedding's); streaming mesh,
+   the same flags with ``--mesh host`` (K6, all on the symmetric grid,
+   and K2, K1 never), bit for bit streaming global; streaming block, K1
+   and K2 once per leaf per step, byzantine mass 0; and streaming global
+   at 8 layers for 2 steps (K1 and K2 once per leaf per step, finite
+   losses, byzantine mass 0; the peak, the largest block's stack and the
+   whole stack the stacked trainer would hold logged, not gated);
 5. wire training A: the same configuration with ``--codec qsgd:bits=8
    --attack scale_poison``: finite losses, byzantine mass 0 at each step,
    the printed wire line at one byte a coordinate plus 4 a leaf, and K5
@@ -54,7 +66,9 @@ Phases; any failure exits non-zero and no result line is printed:
    residual after each step, K5 and K2 once per leaf per step, K1 and K3
    never.  Then mesh wire: wire A's flags at 1 layer for 2 steps,
    replicated (K5 and K2 once per leaf per step), then with ``--mesh
-   host`` (K7 on the symmetric grid and K2, K5 never), bit for bit alike;
+   host`` (K7 on the symmetric grid and K2, K5 never), bit for bit alike,
+   and on the streaming trainer (``--trainer stream_global``: K5 and K2
+   once per leaf per step, K1 never), bit for bit the replicated run;
 7. K5 on a real wire-A container (one batch's gradients, QSGD-encoded,
    forged by ``scale_poison``): every leaf checked as in phase 3, and no
    plan mass on the forged rows;
@@ -253,6 +267,16 @@ K5_K2 = {**K1_K2, "pairwise_stats": 0, "dequant_stats": 1}
 #: once per leaf per step, nothing else
 MESH_K6_K2 = {**K1_K2, "pairwise_stats": 0, "pairwise_stats_rect": 1}
 MESH_K7_K2 = {**K1_K2, "pairwise_stats": 0, "dequant_stats_rect": 1}
+#: the streaming phases: the training phase's flags on the streaming
+#: trainer's two scopes, global scope at 8 layers, and the mesh wire
+#: phase's flags on global scope
+STREAM_GLOBAL_ARGS = TRAIN_ARGS + ["--trainer", "stream_global"]
+STREAM_BLOCK_ARGS = TRAIN_ARGS + ["--trainer", "stream_block"]
+STREAM_DEPTH_ARGS = with_flags(STREAM_GLOBAL_ARGS, layers=8, steps=2)
+STREAM_WIRE_ARGS = MESH_WIRE_ARGS + ["--trainer", "stream_global"]
+#: streaming global's peak device memory must sit this far below the
+#: training phase's
+STREAM_PEAK_MARGIN = 2 * 2 ** 30
 #: the (W, M) meshes whose ranks the tile phase emulates in one process
 TILE_MESHES = ((2, 2), (4, 1))
 #: the K3 route on a column tile: the leaf widths where cuBLAS may form a
@@ -1536,10 +1560,18 @@ def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True,
 
 def training(torch):
     """The training phase; returns (counts, leaf shapes, records, the
-    final parameters), the parameters for the mesh training phase."""
+    final parameters, the peak device memory in bytes), the parameters
+    for the mesh training and streaming phases."""
     counts, shapes, history, _, params = train_phase(
         torch, "training", TRAIN_ARGS, K1_K2, keep_params=True)
-    return counts, shapes, history, params
+    return counts, shapes, history, params, torch.cuda.max_memory_allocated()
+
+
+def to_host(params):
+    """A copy of ``params`` in host memory (frees the card's for the next
+    phase's peak; :func:`same_run` compares across devices)."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda p: p.cpu(), params)
 
 
 def same_run(torch, label, hist, params, want_hist, want_params):
@@ -1554,7 +1586,7 @@ def same_run(torch, label, hist, params, want_hist, want_params):
                   f"against the replicated run's {b[key]}")
     pairs = list(zip(tree_leaves(params), tree_leaves(want_params)))
     check(len(pairs) == len(tree_leaves(want_params)) and
-          all(bits_equal(torch, a, b) for a, b in pairs),
+          all(bits_equal(torch, a.cpu(), b.cpu()) for a, b in pairs),
           f"{label}: parameters after {len(hist)} steps differ from the "
           f"replicated run's")
 
@@ -1604,15 +1636,86 @@ def mesh_training(torch, want_hist, want_params):
 def mesh_wire_training(torch):
     """Wire A's flags at 1 layer for 2 steps, replicated (K5 and K2 once
     per leaf per step), then with ``--mesh host`` (K7 on the symmetric grid
-    and K2, K5 never): bit for bit alike.  Returns the mesh run's counts."""
+    and K2, K5 never): bit for bit alike.  Returns the mesh run's counts
+    and the replicated run's records and final parameters (on the host),
+    for the streaming wire phase."""
     label = "mesh wire (qsgd:bits=8, scale_poison)"
     _, _, hist, _, params = train_phase(
         torch, f"{label}, replicated", MESH_WIRE_ARGS, K5_K2,
         keep_params=True)
+    params = to_host(params)
+    torch.cuda.empty_cache()
     counts = mesh_run(torch, f"{label}, --mesh host", MESH_WIRE_ARGS,
                       MESH_K7_K2, "dequant_stats_rect", hist, params)
+    return counts, hist, params
+
+
+def streaming_training(torch, power, train_hist, train_params, train_peak,
+                       wire_hist, wire_params):
+    """The streaming trainer's phases through the launcher: global scope
+    at the training configuration (K1 and K2 once per leaf per step, bit
+    for bit the training phase, its peak at least STREAM_PEAK_MARGIN below
+    the training phase's ``train_peak``), then with ``--mesh host`` (K6
+    on the symmetric grid and K2, bit for bit streaming global); block
+    scope (K1 and K2, byzantine mass 0); global scope on the mesh wire
+    phase's flags (K5 and K2, bit for bit its replicated run); global
+    scope at 8 layers (:func:`streaming_at_depth`).  Returns {phase:
+    counts}."""
+    label = "streaming global (--trainer stream_global)"
+    counts = {}
+    counts["stream_global"], _, hist, _, params = train_phase(
+        torch, label, STREAM_GLOBAL_ARGS, K1_K2, keep_params=True)
+    peak = torch.cuda.max_memory_allocated()
+    params = to_host(params)
+    torch.cuda.empty_cache()
+    same_run(torch, label, hist, params, train_hist, train_params)
+    check(peak <= train_peak - STREAM_PEAK_MARGIN,
+          f"{label}: peak memory {peak / 2**30:.2f} GiB, want at least "
+          f"{STREAM_PEAK_MARGIN / 2**30:.0f} GiB below the training "
+          f"phase's {train_peak / 2**30:.2f}")
+    log(f"{label}: losses, per-worker losses, selections, byzantine mass "
+        f"and the parameters after {len(hist)} steps bit for bit the "
+        f"training phase's; peak memory {peak / 2**30:.2f} GiB against "
+        f"the training phase's {train_peak / 2**30:.2f} "
+        f"({(train_peak - peak) / 2**30:.2f} GiB less); card {power}")
+    counts["stream_mesh"] = mesh_run(
+        torch, "streaming mesh (--trainer stream_global --mesh host)",
+        STREAM_GLOBAL_ARGS, MESH_K6_K2, "pairwise_stats_rect", hist, params)
+    del params
+    counts["stream_block"], *_ = train_phase(
+        torch, "streaming block (--trainer stream_block)",
+        STREAM_BLOCK_ARGS, K1_K2)
+    label = "streaming wire (qsgd:bits=8, scale_poison, stream_global)"
+    counts["stream_wire"], _, hist, _, params = train_phase(
+        torch, label, STREAM_WIRE_ARGS, K5_K2, keep_params=True)
+    same_run(torch, label, hist, params, wire_hist, wire_params)
+    log(f"{label}: bit for bit the mesh wire phase's replicated run")
     del params
     torch.cuda.empty_cache()
+    counts["stream_depth"] = streaming_at_depth(torch, power)
+    return counts
+
+
+def streaming_at_depth(torch, power):
+    """Streaming global at 8 layers for 2 steps: K1 and K2 once per leaf
+    per step, finite losses, byzantine mass 0; the peak device memory, the
+    largest block's fp32 stack and the whole stack the stacked trainer
+    would hold are logged.  Returns the counts."""
+    from repro_torch.tree import tree_leaves
+    label = "streaming at depth (stream_global, 8 layers)"
+    counts, _, hist, _, params = train_phase(
+        torch, label, STREAM_DEPTH_ARGS, K1_K2, keep_params=True)
+    peak = torch.cuda.max_memory_allocated()
+    stack = {k: 4 * N * sum(p.numel() for p in tree_leaves(v))
+             for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    big = max(stack, key=stack.get)
+    log(f"{label}: peak memory {peak / 2**30:.2f} GiB; the largest "
+        f"block's stack ({big}) {stack[big] / 2**30:.2f} GiB, the whole "
+        f"stack the stacked trainer would hold "
+        f"{sum(stack.values()) / 2**30:.2f} GiB; steady step seconds "
+        f"{[round(r['seconds'], 4) for r in hist[1:]]}; card {power}")
     return counts
 
 
@@ -2219,12 +2322,16 @@ def main():
         worst_rect = rect_vs_square(torch)
         log(f"kernels vs plain versions: {time.perf_counter() - t0:.1f}s; "
             f"K5 worst relative error {worst_k5['max_rel']:.3e}")
-        counts, shapes, history, params = training(torch)
+        counts, shapes, history, params, peak = training(torch)
         step_s = [rec["seconds"] for rec in history]
         counts_mesh_train = mesh_training(torch, history, params)
-        del params
+        params = to_host(params)
+        torch.cuda.empty_cache()
         counts_wire, wire_s = wire_training(torch)
-        counts_mesh_wire = mesh_wire_training(torch)
+        counts_mesh_wire, wire_hist, wire_params = mesh_wire_training(torch)
+        counts_stream = streaming_training(torch, power, history, params,
+                                           peak, wire_hist, wire_params)
+        del params, wire_params
         real_wire_k5(torch, worst_k5)
         worst_k3 = k3_vs_plain(torch)
         counts_k3, held, n_diff = two_step_substrate(torch)
@@ -2234,6 +2341,7 @@ def main():
         counts_phase["quickstart"] = quickstart(torch)
         counts_phase["mesh_training"] = counts_mesh_train
         counts_phase["mesh_wire"] = counts_mesh_wire
+        counts_phase.update(counts_stream)
         counts_mesh = mesh_statistics(torch)
         counts_tiles, tile_ms, tile_bound, tile_bound_by = mesh_tiles(torch)
         tot = timing(torch, shapes, worst_k5)
@@ -2306,6 +2414,9 @@ def main():
          "source": "src/repro_torch/csrc/dequant_stats.cu",
          "replaces": "src/repro/kernels/dequant_stats.py:90",
          "launches": counts_wire["dequant_stats"],
+         "launches_by_phase": {
+             "wire_a": counts_wire["dequant_stats"],
+             "stream_wire": counts_stream["stream_wire"]["dequant_stats"]},
          "max_abs_err": worst_k5["max_abs"],
          "ms": tot["k5_int8"], "plain_ms": tot["k5_plain_int8"],
          "bound_ms": tot["k5_int8_bound"],
@@ -2335,7 +2446,9 @@ def main():
          "launches": counts_mesh["tree"]["pairwise_stats_rect"],
          "launches_by_phase": {
              "mesh_statistics": counts_mesh["tree"]["pairwise_stats_rect"],
-             "mesh_training": counts_mesh_train["pairwise_stats_rect"]},
+             "mesh_training": counts_mesh_train["pairwise_stats_rect"],
+             "stream_mesh":
+                 counts_stream["stream_mesh"]["pairwise_stats_rect"]},
          "max_abs_err": worst_rect["pairwise_stats_rect"],
          "ms": tot_mesh["k6_1x1"], "plain_ms": tot_mesh["k6_1x1_plain"],
          "bound_ms": tot_mesh["k6_1x1_bound"],

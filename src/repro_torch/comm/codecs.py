@@ -76,6 +76,18 @@ def slice_workers(enc: EncodedGrads, start: int, stop: int) -> EncodedGrads:
                         n=m, shapes=shapes, wire_bytes=total)
 
 
+def leaf_containers(enc: EncodedGrads) -> List[EncodedGrads]:
+    """One container per leaf, in leaf order, each with its leaf's byte
+    count: the units the streaming trainer's statistics add up one at a
+    time."""
+    codec = get_codec(enc.spec)
+    return [EncodedGrads(payload=p, sidecar=s, spec=enc.spec, n=enc.n,
+                         shapes=(shape,),
+                         wire_bytes=codec.leaf_wire_bytes(shape))
+            for p, s, shape in zip(tree_leaves(enc.payload),
+                                   sidecar_leaves(enc), enc.shapes)]
+
+
 def encoded_from_jax(enc: Any, *, device=None) -> EncodedGrads:
     """A JAX package's wire container carried across, as
     ``models.params_from_jax`` carries parameters (and an error-feedback
@@ -164,12 +176,14 @@ class Codec:
                                               device=x.device), grads_like)
 
     def encode(self, grads: Tree, *, seed: Optional[int] = None,
-               residual: Optional[Tree] = None
+               residual: Optional[Tree] = None, leaf_offset: int = 0
                ) -> Tuple[EncodedGrads, Optional[Tree]]:
         """Encode a stacked tree; returns (wire container, new residual).
 
         Leaf i draws its randomness from ``leaf_generator(device, seed,
-        i)``.  With error feedback the encoder compresses
+        leaf_offset + i)``: a block of leaves that starts at leaf
+        ``leaf_offset`` of the whole tree encodes as the whole-tree call
+        encodes them.  With error feedback the encoder compresses
         ``g + residual`` and the new residual is the compression error,
         formed leaf by leaf so one leaf's temporaries are live at a time;
         stateless codecs return ``residual`` unchanged.  ``grads`` and
@@ -194,7 +208,7 @@ class Codec:
             if self.stateful:
                 x = x + _leaf2d(res_leaves[i])
             gen = None if seed is None else \
-                leaf_generator(x.device, seed, i)
+                leaf_generator(x.device, seed, leaf_offset + i)
             p, s = self.encode_leaf(x, gen)
             if self.stateful:
                 # the residual x - decode, in the decode's own buffer
@@ -521,6 +535,13 @@ def encoded_raw_stats(enc: EncodedGrads, *, use_kernels: bool = False
         total_d = total_d + dd
         total_s = total_s + sq
     return total_d, total_s
+
+
+def encoded_raw_contrib(enc: EncodedGrads, *, use_kernels: bool = False
+                        ) -> Tensor:
+    """A container's raw (n, n) distance contribution (unclamped, diagonal
+    kept): what it adds to a running total across containers."""
+    return encoded_raw_stats(enc, use_kernels=use_kernels)[0]
 
 
 def encoded_pairwise_stats(enc: EncodedGrads, *, use_kernels: bool = False

@@ -32,7 +32,9 @@ metrics)``; ``state`` is a :class:`TrainerState` (``opt``; ``tstates``,
 one entry per transform; ``astate``, the adaptive attack's feedback
 state; ``cres``, the error-feedback residual, under an ``ef=1`` codec).
 The hierarchical and observability options of the JAX trainer are not
-ported yet.
+ported yet.  The streaming trainer (``dist.streaming``) builds on the
+pieces here: :func:`per_worker_grads` of one block, the ``leaf_offset``
+of the injections, and the honest-deviation helpers.
 """
 from __future__ import annotations
 
@@ -78,31 +80,36 @@ ENCODE_STREAM = 2 ** 31 - 2
 TRANSFORM_STREAM = 2 ** 31 - 1
 
 
-def inject_byzantine(grads: Tree, f: int, attack, seed: int = 0) -> Tree:
+def inject_byzantine(grads: Tree, f: int, attack, seed: int = 0, *,
+                     leaf_offset: int = 0) -> Tree:
     """Overwrite the first ``f`` worker rows of every leaf, in place, with
     the attack's proposals; the attack sees the ``(n-f, numel)`` fp32
     stack of correct rows.  ``attack`` is a spec string or a resolved
     ``(G, f, gen) -> (f, d)`` callable; leaf i draws from a generator
-    seeded by ``(seed, i)``."""
+    seeded by ``(seed, leaf_offset + i)``, so a block of leaves that
+    starts at leaf ``leaf_offset`` of the whole tree (the streaming
+    trainer's) draws what the whole-tree call draws for them."""
     if f == 0:
         return grads
     attack_fn = ATK.get_attack(attack) if isinstance(attack, str) else attack
     for i, leaf in enumerate(tree_leaves(grads)):
         correct = leaf[f:].reshape(leaf.shape[0] - f, -1).float()
-        byz = attack_fn(correct, f, ATK.leaf_generator(leaf.device, seed, i))
+        byz = attack_fn(correct, f, ATK.leaf_generator(
+            leaf.device, seed, leaf_offset + i))
         leaf[:f].copy_(byz.reshape((f,) + tuple(leaf.shape[1:])))
     return grads
 
 
-def inject_wire(enc: CM.EncodedGrads, f: int, attack, seed: int = 0
-                ) -> CM.EncodedGrads:
+def inject_wire(enc: CM.EncodedGrads, f: int, attack, seed: int = 0, *,
+                leaf_offset: int = 0) -> CM.EncodedGrads:
     """Replace the first ``f`` workers' wire messages with the attack's.
 
     The wire counterpart of :func:`inject_byzantine`: ``attack`` is a wire
     attack spec (``core.attacks.WIRE_ATTACKS``) or a resolved callable; it
     sees the honest payload and sidecar rows of each leaf and forges the
     first ``f`` rows of both.  Leaf i gets the generator of
-    ``(seed, i)``.  Returns a new container; ``enc`` is not modified.
+    ``(seed, leaf_offset + i)``, as in :func:`inject_byzantine`.  Returns
+    a new container; ``enc`` is not modified.
     """
     if f == 0:
         return enc
@@ -110,7 +117,7 @@ def inject_wire(enc: CM.EncodedGrads, f: int, attack, seed: int = 0
     p_leaves = tree_leaves(enc.payload)
     new_p, new_s = [], []
     for i, (p, s) in enumerate(zip(p_leaves, CM.codecs.sidecar_leaves(enc))):
-        gen = ATK.leaf_generator(p.device, seed, i)
+        gen = ATK.leaf_generator(p.device, seed, leaf_offset + i)
         pb, sb = fn(p[f:], None if s is None else s[f:], f, gen)
         new_p.append(torch.cat([pb.to(p.dtype), p[f:]], dim=0))
         new_s.append(None if s is None else
@@ -138,6 +145,18 @@ class TrainerState:
     tstates: tuple = ()
     astate: Any = None
     cres: Any = None
+
+
+def as_trainer_state(state) -> TrainerState:
+    """Coerce a bare :class:`OptState` into a :class:`TrainerState`; a
+    TrainerState passes through unchanged."""
+    if isinstance(state, TrainerState):
+        return state
+    if isinstance(state, OptState):
+        return TrainerState(opt=state)
+    raise TypeError(
+        f"expected TrainerState (or a bare OptState), got {type(state)}; "
+        "seed trainer state with dist.init_train_state")
 
 
 def _resolve_codec(codec) -> Optional[CM.Codec]:
@@ -194,29 +213,53 @@ def init_train_state(opt: Optimizer, params: Tree,
 
 
 # ------------------------------------------------------------------ trainer
-def _honest_mean_dev(agg: Tree, grads: Tree, f_eff: int) -> Tensor:
-    """Relative l2 deviation of the aggregate from the honest-row mean."""
-    dev_sq = ref_sq = 0.0
+# The honest-mean deviation is shared by the stacked and the streaming
+# trainer (accumulated block by block there, finalised once), so the
+# metric is the same float computation on both.
+def honest_dev_accumulate(dev_sq, ref_sq, agg: Tree, grads: Tree,
+                          f_eff: int):
+    """Add one (sub)tree's ``||agg - honest_mean||^2`` and
+    ``||honest_mean||^2`` terms, leaf by leaf; ``grads`` is the stack the
+    rule consumed, whose rows ``f_eff:`` are the honest workers'."""
     for a, g in zip(tree_leaves(agg), tree_leaves(grads)):
         hm = torch.mean(g[f_eff:].float(), dim=0)
         dev_sq = dev_sq + torch.sum((a.float() - hm) ** 2)
         ref_sq = ref_sq + torch.sum(hm ** 2)
+    return dev_sq, ref_sq
+
+
+def honest_dev_finalize(dev_sq, ref_sq) -> Tensor:
     return torch.sqrt(dev_sq) / (torch.sqrt(ref_sq) + 1e-12)
+
+
+def _honest_mean_dev(agg: Tree, grads: Tree, f_eff: int) -> Tensor:
+    """Relative l2 deviation of the aggregate from the honest-row mean."""
+    return honest_dev_finalize(
+        *honest_dev_accumulate(0.0, 0.0, agg, grads, f_eff))
 
 
 def per_worker_grads(params: Tree, cfg: ArchConfig,
                      batch: Dict[str, Tensor], *, window: int = 0,
-                     chunk_q: int = 1024):
+                     chunk_q: int = 1024, block: Optional[str] = None):
     """(losses (n,), stacked fp32 gradient tree with leaves (n, ...)).
 
     Workers run one after another; worker w's gradient is written into
     row w of a preallocated stack per leaf, so at most one worker's
-    activations and gradients are live besides the stack.
+    activations and gradients are live besides the stack.  With
+    ``block=k`` only the leaves of ``params[k]`` take gradients (the rest
+    of the tree is closed over as constants) and the stack is that
+    subtree's: each value is the matching leaf of the whole tree's stack.
     """
-    leaves = tree_leaves(params)
+    sub = params if block is None else params[block]
+    leaves = tree_leaves(sub)
     n = next(iter(batch.values())).shape[0]
     live = [p.detach().requires_grad_(True) for p in leaves]
-    live_tree = tree_unflatten(params, live)
+    if block is None:
+        live_tree = tree_unflatten(params, live)
+    else:
+        live_tree = {k: tree_unflatten(sub, live) if k == block else
+                     tree_map(lambda p: p.detach(), v)
+                     for k, v in params.items()}
     stacks = [torch.empty((n,) + tuple(p.shape), dtype=torch.float32,
                           device=p.device) for p in leaves]
     losses = torch.empty((n,), dtype=torch.float32, device=leaves[0].device)
@@ -228,7 +271,7 @@ def per_worker_grads(params: Tree, cfg: ArchConfig,
             s[w].copy_(g)
         losses[w] = loss.detach()
         del loss, grads
-    return losses, tree_unflatten(params, stacks)
+    return losses, tree_unflatten(sub, stacks)
 
 
 def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,

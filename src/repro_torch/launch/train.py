@@ -7,7 +7,10 @@ widths; ``--reduced`` takes the smoke-scale variant.  ``--mesh host``
 runs the aggregation mesh-native on ``launch.mesh.make_host_mesh``: a
 world of one rank (an in-process store), or every rank of a
 ``torchrun`` launch (one process a card, ``env://``); only rank 0
-prints and writes ``--ckpt-dir``.
+prints and writes ``--ckpt-dir``.  ``--trainer stream_block|stream_global``
+takes the streaming trainer (``dist.streaming``), which holds one
+parameter block's gradient stack at a time; ``stream_global`` gives the
+stacked trainer's step bit for bit.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
@@ -19,6 +22,8 @@ Usage:
       --layers 2 --steps 3 --codec qsgd:bits=8 --attack scale_poison
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 3 --seq 16 --attack adaptive_lie --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --layers 8 --steps 2 --trainer stream_global
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen2-1.5b --layers 2 --steps 3 --mesh host
 """
@@ -38,7 +43,8 @@ from repro_torch.comm import wire_stats
 from repro_torch.configs import ARCH_NAMES, RobustConfig, get_config
 from repro_torch.data import lm_batches
 from repro_torch.device import resolve_device
-from repro_torch.dist import init_train_state, make_train_step, split_workers
+from repro_torch.dist import (init_train_state, make_streaming_train_step,
+                              make_train_step, split_workers)
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.tree import tree_leaves
@@ -64,6 +70,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "bf16, signsgd, topk:frac=0.01[,ef=1], fp32; "
                          "attacks then hit the wire format (scale_poison, "
                          "payload_flip are wire-level attacks)")
+    ap.add_argument("--trainer", default="stacked",
+                    choices=("stacked", "stream_block", "stream_global"),
+                    help="stacked: the whole (n, d) gradient stack at once; "
+                         "stream_*: one parameter block's stack at a time, "
+                         "with one plan per block (block) or one plan from "
+                         "a first pass over every block (global)")
     ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="route stats + bulyan apply through the CUDA "
@@ -133,12 +145,17 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
                             else {}))
     lr_fn = warmup_cosine(args.lr, warmup=max(args.steps // 20, 1),
                           total_steps=args.steps)
-    # validates the attack and codec specs (a wire attack needs a codec)
-    # before the model is built
-    step_fn = make_train_step(cfg, rcfg, opt, lr_fn,
-                              chunk_q=min(args.seq, 512),
-                              attack=args.attack, codec=args.codec,
-                              telemetry=True, shard_map_mesh=mesh)
+    # validates the attack and codec specs (a wire attack needs a codec;
+    # the streaming trainer refuses adaptive attacks and ef=1) before the
+    # model is built
+    kw = dict(chunk_q=min(args.seq, 512), attack=args.attack,
+              codec=args.codec, telemetry=True, shard_map_mesh=mesh)
+    if args.trainer == "stacked":
+        step_fn = make_train_step(cfg, rcfg, opt, lr_fn, **kw)
+    else:
+        step_fn = make_streaming_train_step(
+            cfg, rcfg, opt, lr_fn, scope=args.trainer[len("stream_"):],
+            **kw)
     params = MD.init_model(cfg, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     say(f"[train] arch={cfg.name} layers={cfg.n_layers} "

@@ -11,8 +11,10 @@ from the replicated statistics) on three substrates (plain, the kernels'
 plain versions, the two-step substrate) and through
 ``aggregate_tree(row_block(...), mesh_ctx=)``; every wire container
 through the apply of four rules, one of each plan kind; and the tiny
-model through two steps of ``make_train_step(shard_map_mesh=)`` under
-``sign_flip`` and under ``qsgd:bits=8`` with ``scale_poison``.  The
+model through two steps of ``make_train_step(shard_map_mesh=)`` and of
+the streaming trainer's global scope
+(``make_streaming_train_step(scope="global", shard_map_mesh=)``), each
+under ``sign_flip`` and under ``qsgd:bits=8`` with ``scale_poison``.  The
 replicated train steps (no mesh) run once, before the meshes.  What it got
 goes to OUT (``torch.save``).  Imports torch and the port only.
 """
@@ -30,9 +32,14 @@ WIRE_RULES = ("average", "median", "multi_krum", "multi_bulyan")
 #: (label, use_kernels, fused) of each apply substrate
 SUBSTRATES = (("plain", False, True), ("kernels", True, True),
               ("two_step", True, False))
-#: (label, make_train_step keywords) of each trainer case
-TRAIN_CASES = (("sign_flip", {"attack": "sign_flip"}),
-               ("qsgd", {"attack": "scale_poison", "codec": "qsgd:bits=8"}))
+#: (label, trainer, step keywords) of each trainer case: the stacked
+#: trainer and the streaming trainer's global scope
+TRAIN_CASES = tuple(
+    (prefix + label, trainer, kw)
+    for prefix, trainer in (("", "stacked"), ("stream_", "stream_global"))
+    for label, kw in (("sign_flip", {"attack": "sign_flip"}),
+                      ("qsgd", {"attack": "scale_poison",
+                                "codec": "qsgd:bits=8"})))
 TRAIN_STEPS = 2
 #: the seed of the first step (JAX's key 2 in tests/test_torch_trainer.py)
 SEED0 = 2
@@ -69,17 +76,21 @@ def run_train(mesh, inputs):
     byz_mass)]} of TRAIN_STEPS steps, mesh-native on ``mesh`` (None: the
     replicated step)."""
     from repro_torch.configs import ArchConfig, RobustConfig
-    from repro_torch.dist import init_train_state, make_train_step
+    from repro_torch.dist import (init_train_state,
+                                  make_streaming_train_step, make_train_step)
     from repro_torch.optim import constant, sgd
     cfg = ArchConfig(**inputs["tiny"], dtype="float32")
     n = inputs["batch"]["tokens"].shape[0]
     rcfg = RobustConfig(n_workers=n, f=F, gar="multi_bulyan")
     res = {}
-    for case, kw in TRAIN_CASES:
+    for case, trainer, kw in TRAIN_CASES:
         opt = sgd(momentum=0.9)
-        step = make_train_step(cfg, rcfg, opt, constant(0.05),
-                               chunk_q=inputs["seq"], telemetry=True,
-                               shard_map_mesh=mesh, **kw)
+        if trainer == "stream_global":
+            kw = dict(kw, scope="global")
+        make = make_train_step if trainer == "stacked" else \
+            make_streaming_train_step
+        step = make(cfg, rcfg, opt, constant(0.05), chunk_q=inputs["seq"],
+                    telemetry=True, shard_map_mesh=mesh, **kw)
         params = inputs["params"]
         state = init_train_state(opt, params)
         steps = []

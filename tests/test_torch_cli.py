@@ -1,9 +1,13 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
 CPU: fail-fast probes before any step, the paper's contrast under the
 ``inf`` attack (finite under multi_bulyan, blown up under average), the
-compressed wire (``--codec``) with its byte line held to JAX's, and
+compressed wire (``--codec``) with its byte line held to JAX's,
 ``--mesh host`` in a one-rank gloo world (the process group it starts is
-gone after ``run``, one started before it is left up)."""
+gone after ``run``, one started before it is left up), and the streaming
+trainer (``--trainer stream_global|stream_block``: global scope gives the
+stacked run's records bit for bit, alone and with ``--codec``, ``--mesh
+host`` and ``--ckpt-dir``; its refusals come before the model is
+built)."""
 import math
 import os
 import subprocess
@@ -14,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch import train
+from repro_torch.tree import tree_leaves
 
 # the suite runs in several worker processes at once: one thread each
 # keeps the port's many small CPU ops from oversubscribing the cores
@@ -184,3 +189,59 @@ def test_mesh_run_leaves_a_group_it_did_not_start(capsys):
         assert dist.is_initialized()
     finally:
         dist.destroy_process_group()
+
+
+# ----------------------------------------------------- the streaming trainer
+STREAM = ["--steps", "2", "--seq", "16", "--workers", "11", "--f", "2",
+          "--attack", "sign_flip"]
+
+
+def test_stream_global_gives_the_stacked_records_bit_for_bit(capsys):
+    (_, stacked), _ = _run(capsys, *STREAM)
+    (_, stream), out = _run(capsys, *STREAM, "--trainer", "stream_global")
+    assert len(stream) == 2 and "[train] done: final loss" in out
+    for a, b in zip(stream, stacked):
+        for key in ("loss", "loss_per_worker", "selection", "byz_mass",
+                    "honest_dev", "agg_grad_norm"):
+            assert a[key] == b[key], key
+
+
+def test_stream_block_runs_and_rejects_inf(capsys):
+    (_, hist), out = _run(capsys, *STREAM[:-1], "inf", "--trainer",
+                          "stream_block")
+    assert len(hist) == 2 and "[train] done: final loss" in out
+    for rec in hist:
+        assert math.isfinite(rec["loss"]) and rec["byz_mass"] == 0.0
+
+
+def test_stream_global_composes_with_codec_mesh_and_checkpoint(capsys,
+                                                              tmp_path):
+    """``--codec`` with a wire attack, ``--mesh host`` and ``--ckpt-dir``
+    on the streaming trainer: the stacked run's records (the wire bytes
+    too) and a checkpoint of the same parameters."""
+    from repro_torch.checkpoint import restore
+    flags = [*STREAM[:-1], "scale_poison", "--codec", "qsgd:bits=8"]
+    (p_stacked, stacked), _ = _run(capsys, *flags)
+    (p_stream, stream), out = _run(
+        capsys, *flags, "--trainer", "stream_global", "--mesh", "host",
+        "--ckpt-dir", str(tmp_path))
+    assert not dist.is_initialized()
+    assert "[train] mesh=host" in out and "[train] checkpoint ->" in out
+    for a, b in zip(stream, stacked):
+        for key in ("loss", "loss_per_worker", "selection", "byz_mass",
+                    "wire_bytes_per_worker"):
+            assert a[key] == b[key], key
+    saved = restore(str(tmp_path), 2, {"params": p_stream})["params"]
+    for a, b, c in zip(tree_leaves(saved), tree_leaves(p_stream),
+                       tree_leaves(p_stacked)):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--attack", "adaptive_lie"], "adaptive attacks need the stacked"),
+    (["--codec", "signsgd:ef=1"], "error-feedback codecs carry"),
+])
+def test_streaming_refusals_come_before_the_model(capsys, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _run(capsys, "--trainer", "stream_global", *flags)
+    assert "[train] arch" not in capsys.readouterr().out

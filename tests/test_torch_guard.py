@@ -82,6 +82,15 @@ def test_the_checkpoint_and_core_modules_are_covered():
     assert "examples/quickstart_torch.py" in names
 
 
+def test_the_streaming_trainer_is_covered():
+    """The streaming trainer and the modules it extends are among the
+    checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("dist/streaming.py", "dist/__init__.py", "dist/trainer.py",
+                 "comm/codecs.py", "launch/train.py"):
+        assert f"src/repro_torch/{want}" in names
+
+
 def test_the_mesh_worker_imports_no_jax():
     """The spawned ranks of ``tests/test_torch_mesh.py`` import the port
     only."""

@@ -23,7 +23,10 @@ processes of ``tests/_torch_mesh_apply_worker.py``, all within
   ``agg.apply(plan, enc)`` and the port's single-device one, alike;
 * two steps of the mesh train step (the 2-layer d_model-64 model of
   ``tests/test_torch_trainer.py``, ``sign_flip`` with telemetry, and
-  ``qsgd:bits=8`` with ``scale_poison``) against the port's replicated
+  ``qsgd:bits=8`` with ``scale_poison``), of the stacked trainer and of
+  the streaming trainer's global scope (``stream_*``: the statistics of
+  each leaf of each block on the mesh, one running total, K2 on each
+  block's column tiles), each against the same trainer's replicated
   step: the first step's losses equal, selections exact, parameters bit
   for bit at 1×1 and within 1e-6 elsewhere; the first ``sign_flip`` step
   also against JAX's replicated ``make_train_step``, as
@@ -59,7 +62,7 @@ WIRE_RULES = ("average", "median", "multi_krum", "multi_bulyan")
 SUBSTRATES = {"plain": (False, True), "kernels": (True, True),
               "two_step": (True, False)}
 WIRES = ("qsgd:bits=8", "bf16", "topk:frac=0.1", "identity")
-TRAIN_CASES = ("sign_flip", "qsgd")
+TRAIN_CASES = ("sign_flip", "qsgd", "stream_sign_flip", "stream_qsgd")
 TINY = dict(name="tiny-qwen", family="dense", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=128,
             qkv_bias=True, tie_embeddings=True, rope_theta=1e6)
@@ -365,7 +368,7 @@ def test_mesh_train_step_matches_the_replicated_step(ranks, label, case):
         else:
             np.testing.assert_allclose(_np(lwg), _np(lww), rtol=1e-5)
         _mesh_close(label, pg, pw)
-    if case == "qsgd":
+    if case.endswith("qsgd"):
         # scale_poison's forged multipliers are rejected
         assert all(float(s[4]) == 0.0 for s in got)
 
@@ -374,9 +377,21 @@ def test_mesh_train_step_matches_the_replicated_step(ranks, label, case):
 def test_mesh_train_step_matches_jax(ranks, jax_step, label):
     """The first ``sign_flip`` step on the mesh against JAX's replicated
     step, to ``tests/test_torch_trainer.py``'s fp32 tolerances."""
+    _hold_to_jax(ranks, jax_step, label, "sign_flip")
+
+
+@pytest.mark.parametrize("label", MESHES)
+def test_mesh_streaming_step_matches_jax(ranks, jax_step, label):
+    """The first ``sign_flip`` step of the streaming trainer's global
+    scope on the mesh against JAX's replicated (stacked) step: global
+    scope is the stacked step, so the same tolerances hold."""
+    _hold_to_jax(ranks, jax_step, label, "stream_sign_flip")
+
+
+def _hold_to_jax(ranks, jax_step, label, case):
     import jax
     by_label, _ = ranks
-    params, loss, lpw, sel, byz = by_label[label][0]["train"]["sign_flip"][0]
+    params, loss, lpw, sel, byz = by_label[label][0]["train"][case][0]
     jp, jm = jax_step
     np.testing.assert_allclose(float(loss), float(jm["loss"]), rtol=1e-4)
     np.testing.assert_allclose(_np(lpw), jm["loss_per_worker"], rtol=1e-4)
