@@ -176,10 +176,43 @@ order):
   ``dequant_stats_rect_block`` (the rectangular grid, the 4 blocks'
   launches).
 
+The serving phases (after the mesh tiles, before phase 11's timing), on
+qwen2-1.5b's full width with bf16 activations and bf16 KV caches:
+
+* serving: ``repro_torch.launch.serve`` through its entry point at all 28
+  layers (1.54 B fp32 parameters), batch 4, prompt 128, 32 new tokens:
+  the three ``[serve]`` lines, every token in [0, 151936), no kernel
+  launched.  On the same parameters: prefill seconds (median of 3), the
+  decode step's ms a token beside its weight-read bound (the fp32
+  parameter bytes over 3.35 TB/s), and the 28-layer prefill logits
+  against ``forward_fn``'s (logged, not gated); one decode step traced;
+* serving consistency, at 2 layers: prefill and 2 decode steps against
+  ``forward_fn(..., logits_tail=1)`` on the grown prompt within 5e-2
+  (``tests/test_serving.py``'s bound), on the full cache (prompt 128) and
+  the ring buffer (window 64, prompt 96, so every step runs past the
+  wrap); one step at ``seq_chunks=4`` against ``seq_chunks=1`` within one
+  bf16 ulp of the largest logit, and at fp32 activations within 2e-2 (at
+  the full vocabulary the largest bf16 logits reach [4, 8), where one ulp
+  is 2**-5);
+* robust serving: ``make_robust_serve_step`` over 11 replicas at 2 layers
+  (9 identical honest ones; replica 0's embedding table x 1e4, replica
+  1's x -1e4), f = 2, multi_bulyan, kernels on, batch 4, prompt 128, 16
+  greedy tokens: each replica prefilled and its last logits fused by
+  ``aggregate_replica_logits``, then 15 robust decode steps.  K1 and K2
+  once per token (16 each, every K2 launch on the theta = 5 kernel), no
+  other kernel; byzantine mass 0 at every token; the fused logits the
+  honest model's bit for bit at every token and the tokens those of
+  ``generate`` on the honest parameters.  Then on the first token's
+  (11, 4 x 151936) fp32 stack K1 and K2 held to their plain versions as in
+  phase 3 (the plans bit for bit, K2 bit for bit) and timed beside their
+  bytes bounds, with the bf16 -> fp32 copy the backend makes first; one
+  ensemble step traced after the counted run.
+
 Launch counts are read per phase: every count is set to 0 just before a
-training phase, a substrate's apply, a mesh statistics pass or a mesh
-tile route and read just after it (``launches_by_phase`` in the
-``kernels`` line).  K4 has no caller on any of those paths.
+training phase, a substrate's apply, a mesh statistics pass, a mesh tile
+route or a serving phase and read just after it (``launches_by_phase``
+in the ``kernels`` line; ``serving`` and ``robust_serving`` on K1 and
+K2).  K4 has no caller on any of those paths.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
@@ -287,6 +320,28 @@ TILE_MESHES = ((2, 2), (4, 1))
 #: by at most 12 x 2**-24 x max|x| (< 1e-6 x max|x|, test_spmd's bound)
 K3_ROUTE_WIDTHS = (3072,)
 K3_ROUTE_TOL = 1e-6
+#: the serving phase: launch/serve.py at every layer of qwen2-1.5b
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 32
+SERVE_ARGS = ["--arch", "qwen2-1.5b", "--batch", str(SERVE_BATCH),
+              "--prompt-len", str(SERVE_PROMPT), "--new-tokens",
+              str(SERVE_NEW), "--device", "cuda"]
+#: the serving consistency phase: decode against the forward within
+#: tests/test_serving.py's bound; the chunked decode against the
+#: unchunked within its chunk bound at fp32 activations, and at bf16
+#: within one bf16 ulp of the largest logit (at the full vocabulary the
+#: largest logits reach [4, 8), where one ulp is 2**-5, above the chunk
+#: bound); (window, prompt length) cases, the ring's prompt longer than
+#: its window, so decoding runs past the wrap
+SERVE_TOL, CHUNK_TOL = 5e-2, 2e-2
+CONSISTENCY_CASES = ((0, 128), (64, 96))
+CONSISTENCY_STEPS = 2
+#: the robust serving phase: N replicas of qwen2-1.5b at the training
+#: phase's depth, replicas 0 and 1 corrupted (embedding table x 1e4 and
+#: x -1e4), greedy, one fused token per K1 + K2 launch
+ROBUST_LAYERS, ROBUST_NEW = 2, 16
+ROBUST_CORRUPT = (1e4, -1e4)
+#: nothing but K1 and K2, once per generated token
+NO_KERNELS = {name: 0 for name in K1_K2}
 
 
 class SmokeFailure(Exception):
@@ -1935,6 +1990,354 @@ def quickstart(torch):
     return counts
 
 
+# ---------------------------------------------------------------- serving
+def serving_config(layers=0):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b")
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def serve_prompt(torch, batch, length, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randint(0, 151936, (batch, length), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def wall_s(torch, fn):
+    """Seconds of ``fn()`` on the host clock, the device synchronised
+    before and after; returns (seconds, fn's result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def serving(torch, power):
+    """``launch/serve.py`` at all 28 layers of qwen2-1.5b, batch 4, prompt
+    128, 32 new tokens: every token in the vocabulary, no kernel launched.
+    Then on the same parameters: prefill seconds (median of 3), the decode
+    step's ms a token (31 greedy steps) beside its weight-read bound, and
+    the 28-layer prefill logits against the forward's (logged).  Returns
+    the counts and the numbers."""
+    from repro_torch import models as MD
+    from repro_torch.dist.serving import make_serve_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_leaves
+    cfg = serving_config()
+    tee = Tee(sys.stdout)
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(tee):
+        rec = serve.run(SERVE_ARGS)
+    counts = ops.launch_counts()
+    check(counts == NO_KERNELS, f"serving: launches {counts}, want none")
+    toks = rec["tokens"]
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW) and
+          toks.dtype == torch.int32 and
+          bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"serving: tokens {tuple(toks.shape)} {toks.dtype} out of range")
+    text = tee.kept.getvalue()
+    for line in ("[serve] arch=qwen2-1.5b params=",
+                 f"[serve] generated ({SERVE_BATCH}, {SERVE_NEW}) tokens",
+                 "[serve] first sequence: "):
+        check(line in text, f"serving: no line {line!r}")
+    params, prompt = rec["params"], rec["prompt"]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = {"tokens": prompt}
+    cache_len = SERVE_PROMPT + SERVE_NEW
+
+    def prefill():
+        return MD.prefill_fn(params, cfg, batch, chunk_q=SERVE_PROMPT,
+                             cache_len=cache_len)
+
+    times = []
+    for _ in range(3):
+        dt, (logits, cache) = wall_s(torch, prefill)
+        times.append(dt)
+    prefill_s = statistics.median(times)
+    step = make_serve_step(cfg)
+
+    def decode():
+        lg, c = logits, cache
+        for t in range(SERVE_NEW - 1):
+            tok = torch.argmax(lg, dim=-1).int()
+            lg, c = step(params, c, tok, SERVE_PROMPT + t)
+        return lg
+
+    dt, last = wall_s(torch, decode)
+    check(bool(torch.isfinite(last).all()), "serving: non-finite logits")
+    decode_ms = 1e3 * dt / (SERVE_NEW - 1)
+    tok = torch.argmax(logits, dim=-1).int()
+    profiled(torch, f"serving decode ({cfg.n_layers} layers): one step",
+             lambda: step(params, cache, tok, SERVE_PROMPT))
+    bound_ms = 1e3 * 4 * n_params / HBM_BYTES_PER_S
+    with torch.no_grad():
+        full = MD.forward_fn(params, cfg, batch, chunk_q=SERVE_PROMPT,
+                             logits_tail=1)[:, -1]
+    diff28 = float((logits.float() - full.float()).abs().max())
+    out = {"seconds": rec["seconds"], "prefill_s": prefill_s,
+           "decode_ms": decode_ms, "decode_bound_ms": bound_ms,
+           "tok_s": SERVE_BATCH * SERVE_NEW / rec["seconds"],
+           "params": n_params, "prefill_vs_forward_28": diff28}
+    log(f"serving (launch/serve.py, qwen2-1.5b, {cfg.n_layers} layers, "
+        f"{n_params:,} fp32 parameters, batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens): launches {counts}; "
+        f"generate {rec['seconds']:.4f} s ({out['tok_s']:.1f} tok/s, first "
+        f"call included); prefill {prefill_s:.4f} s (median of 3, "
+        f"{[round(t, 4) for t in times]}); decode {decode_ms:.4f} ms a "
+        f"token ({SERVE_NEW - 1} steps) against the weight-read bound "
+        f"{bound_ms:.4f} ms ({4 * n_params:,} B at 3.35 TB/s); prefill "
+        f"logits against the forward's at {cfg.n_layers} layers: max diff "
+        f"{diff28:.6g} (not gated); card {power}")
+    del params, rec, cache, logits, full
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def bf16_spacing(torch, x):
+    """The bf16 spacing at the largest |x|: 2**(e - 7) for it in
+    [2**e, 2**(e + 1))."""
+    return 2.0 ** (math.floor(math.log2(float(x.float().abs().max()))) - 7)
+
+
+def serving_consistency(torch, power):
+    """At 2 layers: prefill and 2 decode steps against ``forward_fn`` on
+    the grown prompt within SERVE_TOL, on the full cache (prompt 128) and
+    the ring buffer (window 64, prompt 96: past the wrap); one decode step
+    with ``seq_chunks=4`` against ``seq_chunks=1`` on each, within one
+    bf16 ulp of the largest logit, and at fp32 activations within
+    CHUNK_TOL.
+    Returns the largest differences."""
+    from repro_torch import models as MD
+    cfg = serving_config(ROBUST_LAYERS)
+    params = MD.init_model(cfg, seed=3, device="cuda")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    worst = {"prefill": 0.0, "decode": 0.0, "chunks_bf16": 0.0,
+             "chunks_ulp": 0.0, "chunks_fp32": 0.0}
+    with torch.no_grad():
+        for window, length in CONSISTENCY_CASES:
+            label = f"serving consistency (window {window}, prompt {length})"
+            cur = {"tokens": serve_prompt(torch, SERVE_BATCH, length,
+                                          seed=length + window)}
+            last, cache = MD.prefill_fn(params, cfg, cur, window=window,
+                                        chunk_q=length)
+            full = MD.forward_fn(params, cfg, cur, window=window,
+                                 logits_tail=1)[:, -1]
+            err = float((last.float() - full.float()).abs().max())
+            check(err <= SERVE_TOL, f"{label}: prefill against the "
+                  f"forward {err}")
+            worst["prefill"] = max(worst["prefill"], err)
+            tok = serve_prompt(torch, SERVE_BATCH, 1, seed=7)[:, 0]
+            one, _ = MD.decode_fn(params, cfg, tok, cache, length,
+                                  window=window)
+            four, _ = MD.decode_fn(params, cfg, tok, cache, length,
+                                   window=window, seq_chunks=4)
+            err = float((one.float() - four.float()).abs().max())
+            ulp = bf16_spacing(torch, one)
+            check(err <= ulp, f"{label}: seq_chunks=4 against 1 {err}, "
+                  f"above one bf16 ulp of the largest logit ({ulp})")
+            worst["chunks_bf16"] = max(worst["chunks_bf16"], err)
+            worst["chunks_ulp"] = max(worst["chunks_ulp"], ulp)
+            _, cache32 = MD.prefill_fn(params, cfg32, cur, window=window,
+                                       chunk_q=length)
+            one, _ = MD.decode_fn(params, cfg32, tok, cache32, length,
+                                  window=window)
+            four, _ = MD.decode_fn(params, cfg32, tok, cache32, length,
+                                   window=window, seq_chunks=4)
+            err = float((one - four).abs().max())
+            check(err <= CHUNK_TOL, f"{label}: seq_chunks=4 against 1 at "
+                  f"fp32 activations {err}")
+            worst["chunks_fp32"] = max(worst["chunks_fp32"], err)
+            del cache32
+            for step in range(CONSISTENCY_STEPS):
+                tok = serve_prompt(torch, SERVE_BATCH, 1,
+                                   seed=100 + step)[:, 0]
+                cur = {"tokens": torch.cat([cur["tokens"], tok[:, None]],
+                                           dim=1)}
+                want = MD.forward_fn(params, cfg, cur, window=window,
+                                     logits_tail=1)[:, -1]
+                got, cache = MD.decode_fn(params, cfg, tok, cache,
+                                          length + step, window=window)
+                err = float((got.float() - want.float()).abs().max())
+                check(err <= SERVE_TOL, f"{label}: decode step {step} "
+                      f"against the forward {err}")
+                worst["decode"] = max(worst["decode"], err)
+    log(f"serving consistency ({cfg.n_layers} layers, batch {SERVE_BATCH}, "
+        f"cases {CONSISTENCY_CASES}): largest differences, prefill "
+        f"{worst['prefill']:.6g} and decode {worst['decode']:.6g} against "
+        f"the forward (bound {SERVE_TOL}); seq_chunks=4 against 1 at bf16 "
+        f"{worst['chunks_bf16']:.6g} (bound: one bf16 ulp of the largest "
+        f"logit, {worst['chunks_ulp']:.6g} at most), at fp32 activations "
+        f"{worst['chunks_fp32']:.6g} (bound {CHUNK_TOL}); card {power}")
+    del params
+    torch.cuda.empty_cache()
+    return worst
+
+
+def profiled(torch, label, fn, top=8):
+    """``fn()`` once under ``torch.profiler`` (after a warm-up call): its
+    kernels' device time against the synchronised wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log_profile(torch, prof, label, wall_ms, top)
+
+
+def recording_backend(rcfg):
+    """The ensemble's backend, keeping every plan it makes."""
+    from repro_torch.core import api
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(api.AggregatorBackend):
+        plans: list = dataclasses.field(default_factory=list, compare=False)
+
+        def plan(self, stats):
+            out = super().plan(stats)
+            self.plans.append(out)
+            return out
+
+    return Recording.for_config(rcfg)
+
+
+def robust_serving(torch, power):
+    """N replicas of qwen2-1.5b at ROBUST_LAYERS layers (N - F identical
+    honest ones, replicas 0 and 1 corrupted), batch 4, prompt 128: each
+    prefilled, the last logits fused by ``aggregate_replica_logits``, then
+    ROBUST_NEW - 1 robust decode steps, greedy.  K1 and K2 once per token
+    (K2 on the theta = 5 kernel), no other kernel; byzantine mass 0 at every
+    token; the fused logits the honest model's bit for bit and the tokens
+    ``generate``'s.  Then, on the first token's stack, K1 and K2 held to
+    their plain versions (the plans bit for bit, K2 bit for bit) and timed
+    beside their bounds.  Returns the counts and the numbers."""
+    from repro_torch import models as MD
+    from repro_torch.configs import RobustConfig
+    from repro_torch.dist.serving import (aggregate_replica_logits, generate,
+                                          make_robust_serve_step)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
+    from repro_torch.tree import tree_map
+    label = "robust serving"
+    cfg = serving_config(ROBUST_LAYERS)
+    honest = MD.init_model(cfg, seed=5, device="cuda")
+    stack = tree_map(lambda t: torch.stack([t] * N), honest)
+    for i, factor in enumerate(ROBUST_CORRUPT):
+        stack["embed"]["table"][i] *= factor
+    rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan",
+                        use_kernels=True)
+    backend = recording_backend(rcfg)
+    prompt = serve_prompt(torch, SERVE_BATCH, SERVE_PROMPT, seed=11)
+    cache_len = SERVE_PROMPT + ROBUST_NEW
+    step = make_robust_serve_step(cfg, rcfg, backend=backend)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        outs = [MD.prefill_fn(tree_map(lambda t: t[i], stack), cfg,
+                              {"tokens": prompt}, chunk_q=SERVE_PROMPT,
+                              cache_len=cache_len) for i in range(N)]
+        first = torch.stack([lg for lg, _ in outs])
+        caches = tree_map(lambda *xs: torch.stack(xs), *[c for _, c in outs])
+        del outs
+        fused = [aggregate_replica_logits(first, rcfg, backend)]
+        tokens = []
+        step_s = []
+        for t in range(ROBUST_NEW):
+            tokens.append(torch.argmax(fused[-1], dim=-1).int())
+            if t + 1 < ROBUST_NEW:
+                dt, (lg, caches) = wall_s(torch, lambda: step(
+                    stack, caches, tokens[-1], SERVE_PROMPT + t))
+                fused.append(lg)
+                step_s.append(dt)
+    counts = ops.launch_counts()
+    want = {**NO_KERNELS, "pairwise_stats": ROBUST_NEW,
+            "fused_select": ROBUST_NEW}
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    variants = k2_variant_check(label, ROBUST_NEW)
+    byz = [float(p.diagnostics()["byz_mass"]) for p in backend.plans]
+    check(len(byz) == ROBUST_NEW and all(b == 0.0 for b in byz),
+          f"{label}: byzantine mass {byz}")
+    with torch.no_grad():
+        profiled(torch, f"{label} ({N} replicas): one step", lambda: step(
+            stack, caches, tokens[-1], SERVE_PROMPT + ROBUST_NEW - 1))
+    del caches
+    with torch.no_grad():
+        want_l, hcache = MD.prefill_fn(honest, cfg, {"tokens": prompt},
+                                       chunk_q=SERVE_PROMPT,
+                                       cache_len=cache_len)
+        for t in range(ROBUST_NEW):
+            check(fused[t].dtype == want_l.dtype and
+                  torch.equal(fused[t], want_l),
+                  f"{label} token {t}: fused logits differ from the honest "
+                  f"model's (max diff "
+                  f"{float((fused[t].float() - want_l.float()).abs().max())})")
+            if t + 1 < ROBUST_NEW:
+                want_l, hcache = MD.decode_fn(honest, cfg, tokens[t], hcache,
+                                              SERVE_PROMPT + t)
+    ref_tokens = generate(honest, cfg, prompt, ROBUST_NEW,
+                          chunk_q=SERVE_PROMPT)
+    got_tokens = torch.stack(tokens, dim=1)
+    check(torch.equal(got_tokens, ref_tokens),
+          f"{label}: ensemble tokens differ from generate's")
+    del stack, fused, hcache
+    torch.cuda.empty_cache()
+    # K1 and K2 on the first token's stack as the backend gives it to them
+    # (core/api.py: the bf16 stack cast to fp32, one (N, B*V) row a replica)
+    x = first.reshape(N, -1).float().contiguous()
+    m = x.shape[1]
+    raw, sq = pairwise_stats_cuda(x)
+    raw_p, sq_p = ref.pairwise_stats_ref(x)
+    err_d = compare_k1(torch, raw, raw_p)
+    err_s = compare_k1(torch, sq, sq_p)
+    check(err_d[1] <= K1_TOL and err_s[1] <= K1_TOL,
+          f"{label}: K1 rel err dists {err_d[1]:.3e} norms {err_s[1]:.3e} "
+          f"> {K1_TOL}")
+    plan, plan_p = plan_of(raw), plan_of(raw_p)
+    check(plan.beta == plan_p.beta and torch.equal(plan.w_ext, plan_p.w_ext)
+          and torch.equal(plan.w_agr, plan_p.w_agr),
+          f"{label}: the plan from K1's distances differs from the plain "
+          f"one's")
+    out_k = fused_select_cuda(x, plan.w_ext, plan.w_agr, plan.beta)
+    check(torch.equal(out_k, ref.fused_select_ref(x, plan.w_ext, plan.w_agr,
+                                                   plan.beta)),
+          f"{label}: K2 differs from its plain version on the logit stack")
+    theta = plan.w_ext.shape[0]
+    k1_ms = time_ms(torch, lambda: pairwise_stats_cuda(x), 50)
+    k2_ms = time_ms(torch, lambda: fused_select_cuda(
+        x, plan.w_ext, plan.w_agr, plan.beta), 50)
+    cast_ms = time_ms(torch, lambda: first.reshape(N, -1).float()
+                      .contiguous(), 50)
+    k1_bound = 1e3 * 4 * (N * m + N * N + N) / HBM_BYTES_PER_S
+    k2_bound = 1e3 * 4 * (N * m + m + 2 * theta * N) / HBM_BYTES_PER_S
+    out = {"token_ms": 1e3 * statistics.mean(step_s),
+           "token_ms_all": [round(1e3 * s, 4) for s in step_s],
+           "k1_ms": k1_ms, "k2_ms": k2_ms, "cast_ms": cast_ms,
+           "k1_bound_ms": k1_bound, "k2_bound_ms": k2_bound,
+           "k1_err": max(err_d[0], err_s[0]),
+           "k1_rel_err": max(err_d[1], err_s[1]), "width": m}
+    log(f"{label} ({N} replicas of qwen2-1.5b at {cfg.n_layers} layers, f = "
+        f"{F}, multi_bulyan, replicas 0, 1 embedding x {ROBUST_CORRUPT}, "
+        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {ROBUST_NEW} tokens): "
+        f"launches {counts}, K2 variants {variants}; byzantine mass 0 at "
+        f"every token; fused logits bit for bit the honest model's at every "
+        f"token; tokens generate's; the ensemble's decode step "
+        f"{out['token_ms']:.4f} ms a token (mean of {len(step_s)}: "
+        f"{out['token_ms_all']}); on the first token's ({N}, {m:,}) fp32 "
+        f"stack K1 {k1_ms:.4f} ms (bound {k1_bound:.4f}, bytes) and K2 "
+        f"{k2_ms:.4f} ms (bound {k2_bound:.4f}, bytes, theta {theta}), each "
+        f"held to its plain version (K1 max abs err {out['k1_err']:.3e}, "
+        f"rel {out['k1_rel_err']:.3e}; plans and K2 bit for bit); the bf16 "
+        f"-> fp32 copy of the stack "
+        f"before each kernel {cast_ms:.4f} ms; card {power}")
+    return counts, out
+
+
 def network_exchanges(slots):
     """Compare-exchanges of select_tile.cuh's Batcher odd-even merge sort
     on `slots` slots (its Network<N>::size())."""
@@ -2344,6 +2747,12 @@ def main():
         counts_phase.update(counts_stream)
         counts_mesh = mesh_statistics(torch)
         counts_tiles, tile_ms, tile_bound, tile_bound_by = mesh_tiles(torch)
+        t0 = time.perf_counter()
+        counts_phase["serving"], serve_out = serving(torch, power)
+        serving_consistency(torch, power)
+        counts_phase["robust_serving"], robust_out = robust_serving(torch,
+                                                                    power)
+        log(f"serving phases: {time.perf_counter() - t0:.1f}s")
         tot = timing(torch, shapes, worst_k5)
         tot_mesh = mesh_timing(torch, shapes)
         log(f"K5 worst relative error over every check: "
@@ -2393,7 +2802,10 @@ def main():
          "max_abs_err": worst["pairwise_stats"],
          "ms": tot["k1"], "plain_ms": tot["k1_plain"],
          "bound_ms": tot["k1_bound"], "bound_by": tot["k1_bound_by"],
-         "library_ms": tot["k1_lib"]},
+         "library_ms": tot["k1_lib"],
+         # one launch on the robust serving phase's (N, B*V) logit stack
+         "serving_ms": robust_out["k1_ms"],
+         "serving_bound_ms": robust_out["k1_bound_ms"]},
         {"name": "fused_select", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_select.cu",
          "replaces": "src/repro/kernels/fused_select.py:142",
@@ -2409,7 +2821,9 @@ def main():
          # one rank's launches on its (12, d/M) tiles of the real leaves,
          # per step, beside the replicated launch on the same leaves
          "tile_ms": tile_ms, "tile_bound_ms": tile_bound,
-         "tile_bound_by": tile_bound_by},
+         "tile_bound_by": tile_bound_by,
+         "serving_ms": robust_out["k2_ms"],
+         "serving_bound_ms": robust_out["k2_bound_ms"]},
         {"name": "dequant_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/dequant_stats.cu",
          "replaces": "src/repro/kernels/dequant_stats.py:90",
@@ -2507,6 +2921,12 @@ def main():
     log(f"mesh apply tiles, one rank's K2 per step: " + ", ".join(
         f"{k} {tile_ms[k]:.4f} ms (bound {tile_bound[k]:.4f}, "
         f"{tile_bound_by[k]})" for k in tile_ms) + f"; card {power}")
+    log(f"serving: prefill {serve_out['prefill_s']:.4f} s, decode "
+        f"{serve_out['decode_ms']:.4f} ms a token (weight-read bound "
+        f"{serve_out['decode_bound_ms']:.4f}), {serve_out['tok_s']:.1f} "
+        f"tok/s; robust ensemble {robust_out['token_ms']:.4f} ms a token, "
+        f"K1 + K2 {robust_out['k1_ms'] + robust_out['k2_ms']:.4f} ms of it; "
+        f"card {power}")
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
         f"{wire_s}; whole run {time.perf_counter() - t_main:.1f}s (the "
         f"kernels' build included)")

@@ -790,8 +790,8 @@ class Aggregator:
 
 @dataclasses.dataclass(frozen=True)
 class AggregatorBackend:
-    """One bound stats→validate→plan→apply pipeline (the trainer's).
-    With ``mesh_ctx`` the statistics and the apply run mesh-native: both
+    """One bound stats→validate→plan→apply pipeline, shared by the trainers
+    and the robust serving ensemble (``dist.serving``).  With ``mesh_ctx`` the statistics and the apply run mesh-native: both
     then take this rank's :class:`RowBlock`."""
 
     gar: str
@@ -827,12 +827,22 @@ class AggregatorBackend:
         agg.validate(stats.n, stats.f)
         return agg.plan(stats)
 
+    def plan_stats(self, grads: Tree, *, dists: Optional[Tensor] = None
+                   ) -> Tuple[AggPlan, AggStats]:
+        stats = self.stats(grads, dists=dists)
+        return self.plan(stats), stats
+
     def apply(self, plan: AggPlan, grads: Tree) -> Tree:
         return self.aggregator.apply(plan, grads,
                                      coord_chunk=self.coord_chunk,
                                      use_kernels=self.use_kernels,
                                      fused=self.fused,
                                      mesh_ctx=self.mesh_ctx)
+
+    def __call__(self, grads: Tree) -> Tree:
+        """stats -> plan -> apply (the serving ensemble's fusion)."""
+        plan, _ = self.plan_stats(grads)
+        return self.apply(plan, grads)
 
 
 REGISTRY: Dict[str, Aggregator] = {}

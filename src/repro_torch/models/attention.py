@@ -1,7 +1,14 @@
-"""GQA self attention with RoPE, full sequences (cf. ``repro.models.attention``).
+"""GQA self attention with RoPE and KV caches (cf. ``repro.models.attention``).
 
-Only :func:`attend_full` (training) is ported; the cached decode and cross
-attention paths wait for the serving slice.
+* :func:`attend_full`   — training / prefill self attention over a whole
+  sequence, query-chunked.
+* :func:`attend_cached` — one-token decode against a KV cache: a full cache
+  or a sliding-window ring buffer (slot of absolute position p is
+  ``p % window``), with an optional flash-style partial softmax over
+  ``seq_chunks`` blocks of the cache.
+
+Caches are bf16 whatever the activation type, as in the JAX package.  The
+encoder-decoder cross attention comes with its model family.
 """
 from __future__ import annotations
 
@@ -119,3 +126,117 @@ def attend_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         out = torch.matmul(probs, vt)                    # (B, H, cq, hd)
         outs.append(out.permute(0, 2, 1, 3).to(q.dtype))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------- cached decode
+def cache_from_prefill(k: Tensor, v: Tensor, cache_len: int, window: int,
+                       dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Pack prompt K/V (B, S, Hkv, hd) into a decode cache.
+
+    Full cache: slots [0, S) of a ``cache_len``-slot buffer.  Ring buffer:
+    the last ``min(window, S)`` tokens in their ring slots ``p % window``.
+    """
+    b, s = k.shape[:2]
+    if window:
+        keep = min(window, s)
+        kw = torch.zeros((b, window) + tuple(k.shape[2:]), dtype=dtype,
+                         device=k.device)
+        vw = torch.zeros_like(kw)
+        slots = torch.arange(s - keep, s, device=k.device) % window
+        kw[:, slots] = k[:, s - keep:].to(dtype)
+        vw[:, slots] = v[:, s - keep:].to(dtype)
+        return {"k": kw, "v": vw}
+    if cache_len < s:
+        raise ValueError(f"cache_len {cache_len} < prompt length {s}")
+    kc = torch.zeros((b, cache_len) + tuple(k.shape[2:]), dtype=dtype,
+                     device=k.device)
+    vc = torch.zeros_like(kc)
+    kc[:, :s] = k.to(dtype)
+    vc[:, :s] = v.to(dtype)
+    return {"k": kc, "v": vc}
+
+
+def init_kv_cache(batch: int, length: int, n_kv: int, head_dim: int,
+                  dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """Cache for one attention layer.  ``length`` is the max context (full
+    cache) or the window size (ring buffer)."""
+    shape = (batch, length, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def position(pos, device) -> Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``.  An int is
+    written by a fill on the device: no host-to-device copy, which would
+    wait for the queued work."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long).reshape(())
+    return torch.full((), pos, dtype=torch.long, device=device)
+
+
+def attend_cached(p: dict, x: Tensor, cache: dict, pos, cfg: ArchConfig, *,
+                  window: int = 0, seq_chunks: int = 1
+                  ) -> Tuple[Tensor, dict]:
+    """One-token decode.  x: (B, 1, d); ``pos``: the absolute position, an
+    int or a 0-d integer tensor (never read on the host).
+
+    Full cache (window == 0): write at slot ``pos``, attend to [0, pos].
+    Ring buffer (window > 0): write at ``pos % window``; slot validity is
+    reconstructed from the absolute position each slot holds.  Returns
+    ``(y (B, 1, d), updated cache)``: the cache is written out of place,
+    so the caller's cache (or a replica stack sharing its storage) is left
+    as it was.
+    """
+    bsz = x.shape[0]
+    pos = position(pos, x.device)
+    q, k_new, v_new = project_qkv(p, x, cfg,
+                                  positions=pos.expand(bsz, 1))
+    slot = (pos % window if window else pos).reshape(1)
+    k = cache["k"].index_copy(1, slot, k_new.to(cache["k"].dtype))
+    v = cache["v"].index_copy(1, slot, v_new.to(cache["v"].dtype))
+
+    length = k.shape[1]
+    sidx = torch.arange(length, device=x.device)
+    if window:
+        # absolute position held by slot s after the write at `pos`
+        # (floor modulo: torch's % on tensors, not fmod)
+        abs_pos = pos - torch.remainder(pos - sidx, window)
+        valid = abs_pos >= 0                     # since abs_pos <= pos
+    else:
+        valid = sidx <= pos
+
+    n_heads = cfg.n_heads
+    hd = cfg.resolved_head_dim
+    scale = 1.0 / math.sqrt(hd)
+    if seq_chunks > 1 and length % seq_chunks == 0:
+        # flash-style partial softmax over seq chunks, grouped-query
+        # einsums (no expanded copy of the cache)
+        lc = length // seq_chunks
+        hkv = cfg.n_kv_heads
+        rep = n_heads // hkv
+        kc = k.float().reshape(bsz, seq_chunks, lc, hkv, hd)
+        vc = v.float().reshape(bsz, seq_chunks, lc, hkv, hd)
+        qg = q.float().reshape(bsz, 1, hkv, rep, hd)
+        logits = torch.einsum("bqgrd,bckgd->bgrck", qg, kc) * scale
+        vmask = valid.reshape(seq_chunks, lc)[None, None, None]
+        logits = torch.where(vmask, logits, torch.full_like(logits, _NEG))
+        m_c = torch.amax(logits, dim=-1)                     # (B,g,r,c)
+        e = torch.exp(logits - m_c[..., None])
+        e = torch.where(vmask, e, torch.zeros_like(e))
+        s_c = torch.sum(e, dim=-1)                           # (B,g,r,c)
+        o_c = torch.einsum("bgrck,bckgd->bgrcd", e, vc)      # (B,g,r,c,hd)
+        m_g = torch.amax(m_c, dim=-1, keepdim=True)
+        w_c = torch.exp(m_c - m_g)                           # (B,g,r,c)
+        denom = torch.sum(w_c * s_c, dim=-1)                 # (B,g,r)
+        out = torch.sum(w_c[..., None] * o_c, dim=3) / denom[..., None]
+        out = out.reshape(bsz, n_heads, hd).to(x.dtype)[:, None]
+    else:
+        ke = _expand_kv(k, n_heads).float()                  # (B, L, H, hd)
+        ve = _expand_kv(v, n_heads).float()
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke) * scale
+        logits = torch.where(valid[None, None, None], logits,
+                             torch.full_like(logits, _NEG))
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, ve).to(x.dtype)
+    y = M.linear_apply(p["o"], out.reshape(bsz, 1, -1))
+    return y, {"k": k, "v": v}

@@ -7,7 +7,10 @@ gone after ``run``, one started before it is left up), and the streaming
 trainer (``--trainer stream_global|stream_block``: global scope gives the
 stacked run's records bit for bit, alone and with ``--codec``, ``--mesh
 host`` and ``--ckpt-dir``; its refusals come before the model is
-built)."""
+built).  Then the serving CLI (``python -m repro_torch.launch.serve``):
+its three ``[serve]`` lines, greedy, categorical and on the ring buffer,
+its tokens those of ``dist.serving.generate`` on the same parameters, and
+its refusal to run on a missing GPU."""
 import math
 import os
 import subprocess
@@ -17,7 +20,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch import train
+from repro_torch.launch import serve, train
 from repro_torch.tree import tree_leaves
 
 # the suite runs in several worker processes at once: one thread each
@@ -245,3 +248,46 @@ def test_streaming_refusals_come_before_the_model(capsys, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         _run(capsys, "--trainer", "stream_global", *flags)
     assert "[train] arch" not in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ serve
+SERVE = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len",
+         "16", "--new-tokens", "8"]
+
+
+@pytest.mark.parametrize("flags", [[], ["--sample", "categorical"],
+                                   ["--window", "8"]],
+                         ids=["greedy", "categorical", "window"])
+def test_serve_prints_its_three_lines(capsys, flags):
+    from repro_torch.dist.serving import generate
+    rec = serve.run(SERVE + flags)
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 3
+    assert out[0] == "[serve] arch=qwen2-1.5b-smoke params=1,313,024"
+    assert out[1].startswith("[serve] generated (2, 8) tokens in ")
+    assert out[1].endswith(" tok/s)")
+    toks = rec["tokens"]
+    assert toks.dtype == torch.int32 and tuple(toks.shape) == (2, 8)
+    assert bool(((toks >= 0) & (toks < 512)).all())
+    assert out[2] == f"[serve] first sequence: {toks[0].tolist()}"
+    window = int(flags[1]) if "--window" in flags else 0
+    seed = 0 if "categorical" in flags else None
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b").reduced()
+    again = generate(rec["params"], cfg, rec["prompt"], 8, window=window,
+                     chunk_q=16, sample="categorical" if seed == 0 else
+                     "greedy", seed=seed)
+    assert torch.equal(again, toks)
+
+
+def test_serve_without_device_flag_fails_in_a_subprocess():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--batch", "2", "--prompt-len", "8", "--new-tokens", "2"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode != 0
+    assert "--device cpu" in res.stderr
+    assert "[serve] generated" not in res.stdout

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-``chip_smoke.py``, ``tools/time_k1.py`` or ``examples/quickstart_torch.py``
-imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``, and the smoke
+``chip_smoke.py``, ``tools/time_k1.py``, ``examples/quickstart_torch.py`` or
+``examples/robust_serving_torch.py`` imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``, and the smoke
 script refuses to run without a card or outside a checkout."""
 import ast
 import os
@@ -15,7 +15,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "time_k1.py",
-    REPO / "examples" / "quickstart_torch.py"]
+    REPO / "examples" / "quickstart_torch.py",
+    REPO / "examples" / "robust_serving_torch.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -89,6 +90,17 @@ def test_the_streaming_trainer_is_covered():
     for want in ("dist/streaming.py", "dist/__init__.py", "dist/trainer.py",
                  "comm/codecs.py", "launch/train.py"):
         assert f"src/repro_torch/{want}" in names
+
+
+def test_the_serving_modules_are_covered():
+    """The serving path, its CLI, its example and the modules that gained
+    the decode are among the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("dist/serving.py", "dist/__init__.py", "launch/serve.py",
+                 "models/attention.py", "models/transformer.py",
+                 "models/api.py", "models/__init__.py", "core/api.py"):
+        assert f"src/repro_torch/{want}" in names
+    assert "examples/robust_serving_torch.py" in names
 
 
 def test_the_mesh_worker_imports_no_jax():
