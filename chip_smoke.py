@@ -8,8 +8,10 @@ Phases; any failure exits non-zero and no result line is printed:
    ``nvcc`` for ``sm_90a`` (one process per source, started together);
 3. kernels vs plain versions: K1 ``pairwise_stats`` and K2
    ``fused_select`` at n = 11 on d in {1, 4095, 100003, 1000000}, on the
-   qwen2-1.5b embedding leaf (11, 233373696) and on one stack carrying the
-   ``inf`` attack.  Tolerances: K1 distances and norms within
+   qwen2-1.5b embedding leaf (11, 233373696), on the qwen3-moe-30b-a3b
+   embedding leaf (11, 311164928: 3.42e9 elements, the largest leaf any
+   phase launches them on) and on one stack carrying the ``inf``
+   attack.  Tolerances: K1 distances and norms within
    1e-5 x max(1, max |plain|) on finite entries, with non-finite entries
    (NaN, inf) at the same places; K2 within 1e-6 x max(1, max |plain|).
    The multi-Bulyan plan built from the kernel's distances must equal the
@@ -208,6 +210,45 @@ qwen2-1.5b's full width with bf16 activations and bf16 KV caches:
   bytes bounds, with the bf16 -> fp32 copy the backend makes first; one
   ensemble step traced after the counted run.
 
+The decoder-family phases (after the serving phases, before phase 11's
+timing), each through its entry point at the published widths:
+
+* MoE training: ``launch/train.py --arch qwen3-moe-30b-a3b --layers 1
+  --trainer stream_global`` (d_model 2048, 32/4 heads, 128 experts
+  top-8, d_expert 768, vocab 151936; 1,236,015,104 parameters), the
+  training phase's n, f, attack, optimizer, seq and batch, 2 steps; SSM
+  training: ``--arch falcon-mamba-7b --layers 2`` (d_model 4096, d_inner
+  8192, d_state 16, dt_rank 256, vocab 65024), stacked, 3 steps; VLM
+  training: ``--arch internvl2-1b --layers 2`` (d_model 896, 14/2
+  heads, vocab 151655) with a 1024-patch bf16 prefix and 128 text
+  tokens, stacked, 2 steps.  Each: finite losses, byzantine mass 0, K1
+  and K2 once per leaf per step and nothing else (K2 on the theta = 5
+  kernel), steady step seconds and peak memory printed; then its first
+  step run twice through the trainer from one state and seed at lr 0.05,
+  the parameters and momentum the same bits both times, and a third run
+  traced;
+* the hybrid: ``--arch jamba-1.5-large-398b --reduced`` (one MoE
+  layer's experts at full width are 9.66e9 parameters), stacked and on
+  ``stream_global``, 2 steps each, bit for bit alike; then
+  ``examples/streaming_at_scale_torch.py`` on the card (diff exactly 0,
+  K1 and K2 once per leaf in each of its two steps);
+* serving: ``launch/serve.py --arch falcon-mamba-7b`` at all 64 layers
+  (7,272,665,088 fp32 parameters) and ``--arch qwen3-moe-30b-a3b
+  --layers 2``, batch 4, prompt 128, 32 tokens: no kernel, every
+  decoded logit finite, prefill seconds and decode ms a token beside the
+  weight-read bound; qwen3-moe's prefill logits the forward's last row
+  bit for bit (tokens drop at its capacity factor 1.25, so its decode
+  is not held to the forward).  Decode against the forward at 2 layers,
+  prefill and 2 steps each within one bf16 ulp of the largest logit,
+  for falcon-mamba-7b at full width and the reduced jamba (window 0 and
+  64);
+* every registered architecture reduced: one stacked step (K1 and K2
+  once per leaf, nothing else) and 4 served tokens (no kernel);
+* K1 and K2 on the qwen3-moe embedding stack and an (11, 128 x 2048 x
+  768) expert stack, timed (median of 3) beside their plain versions,
+  ``torch.mm`` for K1 and their bounds (the ``kernels`` line's
+  ``moe_leaves``), the expert stack held to the plain versions.
+
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
 route or a serving phase and read just after it (``launches_by_phase``
@@ -342,6 +383,31 @@ ROBUST_LAYERS, ROBUST_NEW = 2, 16
 ROBUST_CORRUPT = (1e4, -1e4)
 #: nothing but K1 and K2, once per generated token
 NO_KERNELS = {name: 0 for name in K1_K2}
+#: the decoder families at full width: qwen3-moe-30b-a3b cut to 1 layer on
+#: the streaming trainer's global scope (the stacked step of one layer
+#: would need ~69 GiB), falcon-mamba-7b cut to 2 layers and internvl2-1b
+#: to 2 with its 1024-patch prefix (each 128 text tokens) on the stacked
+#: trainer; the jamba hybrid reduced (one MoE layer's experts of the full
+#: model are 9.66e9 parameters)
+MOE_ARGS = with_flags(TRAIN_ARGS, arch="qwen3-moe-30b-a3b", layers=1,
+                      steps=2) + ["--trainer", "stream_global"]
+SSM_ARGS = with_flags(TRAIN_ARGS, arch="falcon-mamba-7b")
+VLM_ARGS = with_flags(TRAIN_ARGS, arch="internvl2-1b", steps=2)
+HYBRID_ARGS = with_flags(TRAIN_ARGS, arch="jamba-1.5-large-398b",
+                         steps=2) + ["--reduced"]
+#: each registered architecture reduced: one step of one sequence a worker
+REDUCED_ARGS = with_flags(TRAIN_ARGS, steps=1, seq=16,
+                          per_worker_batch=1) + ["--reduced"]
+REDUCED_SERVE_NEW = 4
+#: the qwen3-moe leaves K1 and K2 are held and timed on: the embedding
+#: (and lm_head) and one expert stack
+QWEN3_EMBED_WIDTH = 151936 * 2048
+QWEN3_EXPERT_WIDTH = 128 * 2048 * 768
+#: the families' serving: falcon-mamba-7b at all 64 layers, qwen3-moe at 2
+SSM_SERVE_ARGS = with_flags(SERVE_ARGS, arch="falcon-mamba-7b")
+MOE_SERVE_LAYERS = 2
+MOE_SERVE_ARGS = with_flags(SERVE_ARGS, arch="qwen3-moe-30b-a3b") + [
+    "--layers", str(MOE_SERVE_LAYERS)]
 
 
 class SmokeFailure(Exception):
@@ -457,6 +523,8 @@ def kernels_vs_plain(torch):
     from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
     cases = [(f"d={d}", d, False) for d in CHECK_WIDTHS]
     cases += [(f"embed d={EMBED_WIDTH}", EMBED_WIDTH, False),
+              (f"qwen3-moe embed d={QWEN3_EMBED_WIDTH}", QWEN3_EMBED_WIDTH,
+               False),
               ("inf attack d=1000000", 1_000_000, True)]
     worst = {"pairwise_stats": 0.0, "fused_select": 0.0}
     for label, d, attacked in cases:
@@ -2014,39 +2082,41 @@ def wall_s(torch, fn):
     return time.perf_counter() - t0, out
 
 
-def serving(torch, power):
-    """``launch/serve.py`` at all 28 layers of qwen2-1.5b, batch 4, prompt
-    128, 32 new tokens: every token in the vocabulary, no kernel launched.
-    Then on the same parameters: prefill seconds (median of 3), the decode
-    step's ms a token (31 greedy steps) beside its weight-read bound, and
-    the 28-layer prefill logits against the forward's (logged).  Returns
-    the counts and the numbers."""
+def serve_and_time(torch, power, label, argv, cfg, *, profile=False):
+    """``launch/serve.py`` with ``argv`` (batch SERVE_BATCH, prompt
+    SERVE_PROMPT, SERVE_NEW new tokens): every token in the vocabulary,
+    the three ``[serve]`` lines, no kernel launched.  Then on the same
+    parameters (and the VLM prefix, if any): prefill seconds (median of
+    3), the decode step's ms a token (SERVE_NEW - 1 greedy steps, every
+    logit finite) beside its weight-read bound, and the prefill logits
+    against the forward's.  Returns the counts, the numbers and the
+    prefill and forward logits."""
     from repro_torch import models as MD
     from repro_torch.dist.serving import make_serve_step
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.tree import tree_leaves
-    cfg = serving_config()
     tee = Tee(sys.stdout)
     ops.reset_launch_counts()
     with contextlib.redirect_stdout(tee):
-        rec = serve.run(SERVE_ARGS)
+        rec = serve.run(argv)
     counts = ops.launch_counts()
-    check(counts == NO_KERNELS, f"serving: launches {counts}, want none")
+    check(counts == NO_KERNELS, f"{label}: launches {counts}, want none")
     toks = rec["tokens"]
     check(tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW) and
           toks.dtype == torch.int32 and
           bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-          f"serving: tokens {tuple(toks.shape)} {toks.dtype} out of range")
+          f"{label}: tokens {tuple(toks.shape)} {toks.dtype} out of range")
     text = tee.kept.getvalue()
-    for line in ("[serve] arch=qwen2-1.5b params=",
+    for line in (f"[serve] arch={cfg.name} params=",
                  f"[serve] generated ({SERVE_BATCH}, {SERVE_NEW}) tokens",
                  "[serve] first sequence: "):
-        check(line in text, f"serving: no line {line!r}")
+        check(line in text, f"{label}: no line {line!r}")
     params, prompt = rec["params"], rec["prompt"]
     n_params = sum(p.numel() for p in tree_leaves(params))
-    batch = {"tokens": prompt}
-    cache_len = SERVE_PROMPT + SERVE_NEW
+    batch = {"tokens": prompt, **(rec["extra"] or {})}
+    n_prefix = cfg.n_patches if rec["extra"] else 0
+    cache_len = n_prefix + SERVE_PROMPT + SERVE_NEW
 
     def prefill():
         return MD.prefill_fn(params, cfg, batch, chunk_q=SERVE_PROMPT,
@@ -2060,39 +2130,52 @@ def serving(torch, power):
     step = make_serve_step(cfg)
 
     def decode():
-        lg, c = logits, cache
+        lg, c, finite = logits, cache, []
         for t in range(SERVE_NEW - 1):
             tok = torch.argmax(lg, dim=-1).int()
-            lg, c = step(params, c, tok, SERVE_PROMPT + t)
-        return lg
+            lg, c = step(params, c, tok, n_prefix + SERVE_PROMPT + t)
+            finite.append(torch.isfinite(lg).all())
+        return torch.stack(finite).all()
 
-    dt, last = wall_s(torch, decode)
-    check(bool(torch.isfinite(last).all()), "serving: non-finite logits")
+    dt, finite = wall_s(torch, decode)
+    check(bool(finite), f"{label}: non-finite decoded logits")
     decode_ms = 1e3 * dt / (SERVE_NEW - 1)
-    tok = torch.argmax(logits, dim=-1).int()
-    profiled(torch, f"serving decode ({cfg.n_layers} layers): one step",
-             lambda: step(params, cache, tok, SERVE_PROMPT))
+    if profile:
+        tok = torch.argmax(logits, dim=-1).int()
+        profiled(torch, f"{label}: one decode step",
+                 lambda: step(params, cache, tok, n_prefix + SERVE_PROMPT))
     bound_ms = 1e3 * 4 * n_params / HBM_BYTES_PER_S
     with torch.no_grad():
         full = MD.forward_fn(params, cfg, batch, chunk_q=SERVE_PROMPT,
                              logits_tail=1)[:, -1]
-    diff28 = float((logits.float() - full.float()).abs().max())
+    diff = float((logits.float() - full.float()).abs().max())
     out = {"seconds": rec["seconds"], "prefill_s": prefill_s,
            "decode_ms": decode_ms, "decode_bound_ms": bound_ms,
            "tok_s": SERVE_BATCH * SERVE_NEW / rec["seconds"],
-           "params": n_params, "prefill_vs_forward_28": diff28}
-    log(f"serving (launch/serve.py, qwen2-1.5b, {cfg.n_layers} layers, "
+           "params": n_params, "prefill_vs_forward": diff}
+    log(f"{label} (launch/serve.py, {cfg.name}, {cfg.n_layers} layers, "
         f"{n_params:,} fp32 parameters, batch {SERVE_BATCH}, prompt "
-        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens): launches {counts}; "
+        f"{SERVE_PROMPT}{f' after a {n_prefix}-patch prefix' if n_prefix else ''}, "
+        f"{SERVE_NEW} new tokens): launches {counts}; "
         f"generate {rec['seconds']:.4f} s ({out['tok_s']:.1f} tok/s, first "
         f"call included); prefill {prefill_s:.4f} s (median of 3, "
         f"{[round(t, 4) for t in times]}); decode {decode_ms:.4f} ms a "
-        f"token ({SERVE_NEW - 1} steps) against the weight-read bound "
-        f"{bound_ms:.4f} ms ({4 * n_params:,} B at 3.35 TB/s); prefill "
-        f"logits against the forward's at {cfg.n_layers} layers: max diff "
-        f"{diff28:.6g} (not gated); card {power}")
-    del params, rec, cache, logits, full
+        f"token ({SERVE_NEW - 1} steps, every logit finite) against the "
+        f"weight-read bound {bound_ms:.4f} ms ({4 * n_params:,} B at 3.35 "
+        f"TB/s); prefill logits against the forward's: max diff {diff:.6g}; "
+        f"card {power}")
+    del params, rec, cache
     torch.cuda.empty_cache()
+    return counts, out, logits, full
+
+
+def serving(torch, power):
+    """``launch/serve.py`` at all 28 layers of qwen2-1.5b, batch 4, prompt
+    128, 32 new tokens (:func:`serve_and_time`, one decode step traced;
+    the prefill against the forward logged, not gated).  Returns the
+    counts and the numbers."""
+    counts, out, _, _ = serve_and_time(
+        torch, power, "serving", SERVE_ARGS, serving_config(), profile=True)
     return counts, out
 
 
@@ -2336,6 +2419,297 @@ def robust_serving(torch, power):
         f"-> fp32 copy of the stack "
         f"before each kernel {cast_ms:.4f} ms; card {power}")
     return counts, out
+
+
+# ------------------------------------------------------- decoder families
+def repeated_step(torch, label, argv):
+    """The first step of ``argv``'s configuration (the launcher's model,
+    batch and seed) run twice through the trainer from the same
+    parameters, state, batch and seed, at a constant lr of 0.05 (the
+    launcher's warm-up gives step 0 an lr of 0): the parameters and the
+    momentum after it must be the same bits both times.  A third run is
+    traced (:func:`log_profile`, with K1's and K2's share)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import models as MD
+    from repro_torch.dist import init_train_state
+    from repro_torch.launch import train
+    from repro_torch.optim import constant
+    from repro_torch.tree import tree_leaves
+    args = train.parse_args(argv)
+    cfg = MD.arch_config(args.arch, reduced=args.reduced,
+                         layers=args.layers)
+    opt, step = train.make_trainer(args, cfg, train.robust_config(args),
+                                   constant(0.05))
+    params = MD.init_model(cfg, seed=args.seed, device="cuda")
+    batch = next(train.worker_batches(args, cfg, torch.device("cuda")))
+    runs = []
+    for _ in range(2):
+        new, state, _ = step(params, init_train_state(opt, params), batch,
+                             args.seed)
+        runs.append(tree_leaves(new) + tree_leaves(state.opt.mu))
+        del new, state
+    moved = any(not torch.equal(a, b) for a, b in
+                zip(runs[0], tree_leaves(params)))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(moved, f"{label}: the repeated step left the parameters as "
+          f"they were")
+    check(same, f"{label}: the first step run twice from the same state "
+          f"gave parameters or momentum that differ")
+    log(f"{label}: the first step run twice from the same parameters, "
+        f"batch and seed: parameters and momentum ({len(runs[0])} leaves) "
+        f"the same bits both times")
+    del runs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, state, _ = step(params, init_train_state(opt, params), batch,
+                             args.seed)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    del new, state
+    log_profile(torch, prof, f"{label}: one step", wall_ms, 12)
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def family_training(torch, power):
+    """The decoder families' training phases through the launcher: the
+    MoE model (qwen3-moe-30b-a3b, 1 layer, full width) on the streaming
+    trainer's global scope, the SSM model (falcon-mamba-7b, 2 layers,
+    full width) and the VLM (internvl2-1b, 2 layers, full width, a
+    1024-patch prefix) on the stacked trainer: finite losses, byzantine
+    mass 0, K1 and K2 once per leaf per step and nothing else, and the
+    first step repeated bit for bit (:func:`repeated_step`); the hybrid
+    (jamba-1.5-large-398b reduced) stacked and on ``stream_global`` bit
+    for bit alike; ``examples/streaming_at_scale_torch.py`` on the card.
+    Returns ({phase: counts}, {phase: (steady step seconds, peak GiB)})."""
+    import importlib.util
+    from repro_torch import models as MD
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    counts, numbers = {}, {}
+    for phase, label, argv in (
+            ("moe_training", "MoE training (qwen3-moe-30b-a3b, 1 layer, "
+             "stream_global)", MOE_ARGS),
+            ("ssm_training", "SSM training (falcon-mamba-7b, 2 layers)",
+             SSM_ARGS),
+            ("vlm_training", "VLM training (internvl2-1b, 2 layers, "
+             "1024-patch prefix)", VLM_ARGS)):
+        t0 = time.perf_counter()
+        counts[phase], _, hist, _, _ = train_phase(torch, label, argv,
+                                                   K1_K2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = [round(r["seconds"], 4) for r in hist[1:]]
+        numbers[phase] = {"steady_step_s": steady, "peak_gib": peak}
+        repeated_step(torch, label, argv)
+        log(f"{label}: steady step seconds {steady}, peak memory "
+            f"{peak:.2f} GiB; phase {time.perf_counter() - t0:.1f} s; card "
+            f"{power}")
+    label = "hybrid (jamba-1.5-large-398b reduced)"
+    counts["hybrid"], _, hist, _, params = train_phase(
+        torch, f"{label}, stacked", HYBRID_ARGS, K1_K2, keep_params=True)
+    counts["hybrid_stream"], _, s_hist, _, s_params = train_phase(
+        torch, f"{label}, stream_global", HYBRID_ARGS + [
+            "--trainer", "stream_global"], K1_K2, keep_params=True)
+    same_run(torch, f"{label}, stream_global", s_hist, s_params, hist,
+             params)
+    log(f"{label}: stream_global's losses, per-worker losses, selections, "
+        f"byzantine mass and parameters after {len(hist)} steps bit for "
+        f"bit the stacked trainer's")
+    del params, s_params
+    spec = importlib.util.spec_from_file_location(
+        "streaming_at_scale_torch", os.path.join(
+            ROOT, "examples", "streaming_at_scale_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    leaves = len(tree_leaves(MD.init_model(ex.CFG, device="cpu")))
+    ops.reset_launch_counts()
+    diff = ex.main([])
+    counts["example"] = ops.launch_counts()
+    want = {k: v * 2 * leaves for k, v in K1_K2.items()}
+    check(diff == 0.0 and counts["example"] == want,
+          f"streaming_at_scale_torch.py: diff {diff}, launches "
+          f"{counts['example']}, want {want}")
+    k2_variant_check("streaming_at_scale_torch.py",
+                     counts["example"]["fused_select"])
+    log(f"examples/streaming_at_scale_torch.py (mini-jamba, 4 layers, "
+        f"{leaves} leaves): max |param diff| stacked vs streaming-global "
+        f"{diff}; launches {counts['example']} (one stacked and one "
+        f"streaming step)")
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return counts, numbers
+
+
+def decode_against_forward(torch, label, cfg, params, window):
+    """Prefill (prompt SERVE_PROMPT) and CONSISTENCY_STEPS decode steps
+    against ``forward_fn`` on the grown prompt, each within one bf16 ulp
+    of its largest forward logit (:func:`bf16_spacing`); returns the
+    largest difference and the largest such ulp."""
+    from repro_torch import models as MD
+    worst, ulp_max = 0.0, 0.0
+
+    def held(got, want, what):
+        nonlocal worst, ulp_max
+        err = float((got.float() - want.float()).abs().max())
+        ulp = bf16_spacing(torch, want)
+        check(err <= ulp, f"{label}: {what} against the forward {err}, "
+              f"above one bf16 ulp of the largest logit ({ulp})")
+        worst, ulp_max = max(worst, err), max(ulp_max, ulp)
+
+    with torch.no_grad():
+        cur = {"tokens": serve_prompt(torch, SERVE_BATCH, SERVE_PROMPT,
+                                      seed=11) % cfg.vocab_size}
+        last, cache = MD.prefill_fn(params, cfg, cur, window=window,
+                                    chunk_q=SERVE_PROMPT)
+        held(last, MD.forward_fn(params, cfg, cur, window=window,
+                                 logits_tail=1)[:, -1], "prefill")
+        for step in range(CONSISTENCY_STEPS):
+            tok = serve_prompt(torch, SERVE_BATCH, 1,
+                               seed=200 + step)[:, 0] % cfg.vocab_size
+            cur = {"tokens": torch.cat([cur["tokens"], tok[:, None]], 1)}
+            got, cache = MD.decode_fn(params, cfg, tok, cache,
+                                      SERVE_PROMPT + step, window=window)
+            held(got, MD.forward_fn(params, cfg, cur, window=window,
+                                    logits_tail=1)[:, -1],
+                 f"decode step {step}")
+    return worst, ulp_max
+
+
+def family_serving(torch, power):
+    """``launch/serve.py`` on falcon-mamba-7b at all 64 layers and on
+    qwen3-moe-30b-a3b at 2 layers (full width): no kernel, every decoded
+    logit finite, prefill seconds and decode ms a token beside the
+    weight-read bound; qwen3-moe's prefill the forward's last row bit for
+    bit (tokens drop at its capacity factor, so decode is not held to the
+    forward).  Then decode against the forward at 2 layers, within one
+    bf16 ulp of the largest logit, for falcon-mamba-7b (full width) and
+    the reduced jamba (window 0 and 64) (:func:`decode_against_forward`).
+    Returns ({phase: counts}, {phase: numbers})."""
+    from repro_torch import models as MD
+    counts, numbers = {}, {}
+    cfg = MD.arch_config("falcon-mamba-7b")
+    counts["ssm_serving"], numbers["ssm_serving"], logits, full = \
+        serve_and_time(torch, power, "SSM serving (all 64 layers)",
+                       SSM_SERVE_ARGS, cfg)
+    del logits, full
+    cfg = MD.arch_config("qwen3-moe-30b-a3b", layers=MOE_SERVE_LAYERS)
+    counts["moe_serving"], numbers["moe_serving"], logits, full = \
+        serve_and_time(torch, power, f"MoE serving ({MOE_SERVE_LAYERS} "
+                       f"layers)", MOE_SERVE_ARGS, cfg)
+    check(torch.equal(logits, full), "MoE serving: prefill logits differ "
+          "from the forward's last row")
+    log("MoE serving: prefill logits the forward's last row bit for bit")
+    del logits, full
+    torch.cuda.empty_cache()
+    worst = {}
+    for name, cfg in (
+            ("falcon-mamba-7b, 2 layers",
+             MD.arch_config("falcon-mamba-7b", layers=2)),
+            ("jamba-1.5-large-398b reduced",
+             MD.arch_config("jamba-1.5-large-398b", reduced=True))):
+        params = MD.init_model(cfg, seed=5, device="cuda")
+        for window in ((0,) if cfg.is_attention_free else (0, 64)):
+            label = f"decode consistency ({name}, window {window})"
+            err, ulp = decode_against_forward(torch, label, cfg, params,
+                                              window)
+            worst[label] = (err, ulp)
+            log(f"{label}: prefill and {CONSISTENCY_STEPS} decode steps "
+                f"against the forward, largest difference {err:.6g}, each "
+                f"within one bf16 ulp of its largest logit (at most "
+                f"{ulp:.6g}); card {power}")
+        del params
+        torch.cuda.empty_cache()
+    numbers["decode_consistency"] = worst
+    return counts, numbers
+
+
+def every_config_reduced(torch):
+    """Each of the registry's architectures, reduced: one stacked training
+    step (K1 and K2 once per leaf, nothing else; finite loss, byzantine
+    mass 0) and REDUCED_SERVE_NEW served tokens (no kernel).  Returns
+    {"reduced <name>": counts}."""
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    counts = {}
+    for name in ARCH_NAMES:
+        counts[f"reduced {name}"], *_ = train_phase(
+            torch, f"reduced {name}, one step",
+            with_flags(REDUCED_ARGS, arch=name), K1_K2)
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = serve.run(["--arch", name, "--reduced", "--batch", "2",
+                             "--prompt-len", "16", "--new-tokens",
+                             str(REDUCED_SERVE_NEW), "--device", "cuda"])
+        got = ops.launch_counts()
+        toks = rec["tokens"]
+        check(got == NO_KERNELS and tuple(toks.shape) == (
+            2, REDUCED_SERVE_NEW) and bool(((toks >= 0) & (
+                toks < 512)).all()),
+              f"reduced {name} serving: launches {got}, tokens {toks}")
+        log(f"reduced {name}: served {REDUCED_SERVE_NEW} tokens "
+            f"{toks[0].tolist()}, no kernel")
+        del rec
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_leaves(torch):
+    """K1 and K2 on the largest leaves any phase gives them, the MoE
+    training phase's (11, 151936 x 2048) embedding and lm_head stacks and
+    (11, 128 x 2048 x 768) expert stacks: each held to its plain version
+    as in phase 3 (the embedding stack in :func:`kernels_vs_plain`) and
+    timed (median of 3, CUDA events) beside its plain version, the library
+    call (``torch.mm`` for K1; none for K2) and its bound.  Returns
+    {leaf: {k1_ms, k1_plain_ms, k1_lib_ms, k1_bound_ms, k2_ms, ...}}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
+    out = {}
+    for leaf, m in (("embed", QWEN3_EMBED_WIDTH),
+                    ("experts", QWEN3_EXPERT_WIDTH)):
+        x = rows_stack(torch, m, seed=m)
+        raw, _ = pairwise_stats_cuda(x)
+        plan = plan_of(raw)
+        theta = plan.w_ext.shape[0]
+        if leaf == "experts":
+            got = fused_select_cuda(x, plan.w_ext, plan.w_agr, plan.beta)
+            want = ref.fused_select_ref(x, plan.w_ext, plan.w_agr, plan.beta)
+            check(torch.equal(got, want), f"K2 on the {leaf} stack "
+                  f"({N}, {m}): differs from its plain version")
+            raw_p, _ = ref.pairwise_stats_ref(x)
+            _, r_d = compare_k1(torch, raw, raw_p)
+            check(r_d <= K1_TOL, f"K1 on the {leaf} stack: rel err {r_d}")
+            del got, want, raw_p
+        r = {
+            "k1_ms": time_ms(torch, lambda: pairwise_stats_cuda(x), 3),
+            "k1_plain_ms": time_ms(torch, lambda: ref.pairwise_stats_ref(x),
+                                   3),
+            "k1_lib_ms": time_ms(torch, lambda: torch.mm(x, x.t()), 3),
+            "k2_ms": time_ms(torch, lambda: fused_select_cuda(
+                x, plan.w_ext, plan.w_agr, plan.beta), 3),
+            "k2_plain_ms": time_ms(torch, lambda: ref.fused_select_ref(
+                x, plan.w_ext, plan.w_agr, plan.beta), 1)}
+        k1_b = {"bytes": 4 * (N * m + N * N + N) / HBM_BYTES_PER_S,
+                "operations": N * (N + 1) * m / FP32_FLOP_PER_S}
+        k2_b = {"bytes": 4 * (N * m + m + 2 * theta * N) / HBM_BYTES_PER_S,
+                "operations": (4 * theta * N + select_phase_ops(
+                    theta, plan.beta)) * m / FP32_FLOP_PER_S}
+        for k, b in (("k1", k1_b), ("k2", k2_b)):
+            r[f"{k}_bound_by"] = max(b, key=b.get)
+            r[f"{k}_bound_ms"] = 1e3 * max(b.values())
+        out[leaf] = r
+        log(f"qwen3-moe {leaf} stack ({N}, {m:,}) = {N * m:,} elements: "
+            f"K1 {r['k1_ms']:.4f} ms (plain {r['k1_plain_ms']:.4f}, "
+            f"torch.mm {r['k1_lib_ms']:.4f}, bound {r['k1_bound_ms']:.4f} "
+            f"{r['k1_bound_by']}), K2 {r['k2_ms']:.4f} ms (plain "
+            f"{r['k2_plain_ms']:.4f}, bound {r['k2_bound_ms']:.4f} "
+            f"{r['k2_bound_by']}, theta {theta})")
+        del x, raw
+        torch.cuda.empty_cache()
+    return out
 
 
 def network_exchanges(slots):
@@ -2673,9 +3047,13 @@ def log_profile(torch, prof, label, wall_ms, top):
             acc[1] += 1
     busy_ms = sum(v[0] for v in per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    # K1's (and K5's, K6's) stats_tile kernels and K2's
+    ours = sum(v[0] for k, v in per_kernel.items()
+               if "stats_tile::" in k or "fused_select" in k)
     log(f"profile {label} {wall_ms:.1f} ms wall under the profiler, "
         f"kernels busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(v[1] for v in per_kernel.values())} kernel launches")
+        f"{sum(v[1] for v in per_kernel.values())} kernel launches; the "
+        f"statistics' and K2's kernels {ours:.1f} ms")
     for name, (ms, count) in rows[:top]:
         log(f"  {ms:10.3f} ms {count:6d}x  {name[:100]}")
 
@@ -2753,6 +3131,20 @@ def main():
         counts_phase["robust_serving"], robust_out = robust_serving(torch,
                                                                     power)
         log(f"serving phases: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        counts_fam, fam_train = family_training(torch, power)
+        log(f"decoder families, training: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        counts_serve, fam_serve = family_serving(torch, power)
+        counts_fam.update(counts_serve)
+        log(f"decoder families, serving: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        counts_fam.update(every_config_reduced(torch))
+        log(f"every config reduced: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        moe_tot = moe_leaves(torch)
+        log(f"qwen3-moe leaves: {time.perf_counter() - t0:.1f}s")
+        counts_phase.update(counts_fam)
         tot = timing(torch, shapes, worst_k5)
         tot_mesh = mesh_timing(torch, shapes)
         log(f"K5 worst relative error over every check: "
@@ -2805,7 +3197,11 @@ def main():
          "library_ms": tot["k1_lib"],
          # one launch on the robust serving phase's (N, B*V) logit stack
          "serving_ms": robust_out["k1_ms"],
-         "serving_bound_ms": robust_out["k1_bound_ms"]},
+         "serving_bound_ms": robust_out["k1_bound_ms"],
+         # one launch on each of the MoE phase's largest leaves
+         "moe_leaves": {leaf: {k[3:]: v for k, v in r.items()
+                               if k.startswith("k1_")}
+                        for leaf, r in moe_tot.items()}},
         {"name": "fused_select", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_select.cu",
          "replaces": "src/repro/kernels/fused_select.py:142",
@@ -2823,7 +3219,10 @@ def main():
          "tile_ms": tile_ms, "tile_bound_ms": tile_bound,
          "tile_bound_by": tile_bound_by,
          "serving_ms": robust_out["k2_ms"],
-         "serving_bound_ms": robust_out["k2_bound_ms"]},
+         "serving_bound_ms": robust_out["k2_bound_ms"],
+         "moe_leaves": {leaf: {k[3:]: v for k, v in r.items()
+                               if k.startswith("k2_")}
+                        for leaf, r in moe_tot.items()}},
         {"name": "dequant_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/dequant_stats.cu",
          "replaces": "src/repro/kernels/dequant_stats.py:90",
@@ -2927,6 +3326,9 @@ def main():
         f"tok/s; robust ensemble {robust_out['token_ms']:.4f} ms a token, "
         f"K1 + K2 {robust_out['k1_ms'] + robust_out['k2_ms']:.4f} ms of it; "
         f"card {power}")
+    log(f"decoder families: training {json.dumps(fam_train)}; serving "
+        f"{json.dumps({k: v for k, v in fam_serve.items() if k != 'decode_consistency'})}; "
+        f"decode consistency {fam_serve['decode_consistency']}; card {power}")
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
         f"{wire_s}; whole run {time.perf_counter() - t_main:.1f}s (the "
         f"kernels' build included)")

@@ -125,21 +125,30 @@ def generate(params: Tree, cfg: ArchConfig, prompt: Tensor, new_tokens: int,
     """Prefill ``prompt`` (B, S) and decode ``new_tokens`` continuations on
     the prompt's device.  Returns (B, new_tokens) int32.  ``window > 0``
     serves from the sliding-window ring cache; otherwise the cache holds
-    prompt + new_tokens exactly.  ``extra_batch`` (the VLM / audio inputs)
-    comes with those model families."""
+    prefix + prompt + new_tokens exactly.  ``extra_batch`` carries a VLM's
+    ``prefix_embeds`` (B, n_patches, d_model), which take the cache slots
+    before the prompt, so the decode positions start after them; the
+    audio ``frames`` come with the encoder-decoder family."""
+    batch: Dict[str, Tensor] = {"tokens": prompt}
     if extra_batch:
-        raise NotImplementedError(
-            f"extra_batch {sorted(extra_batch)}: the vlm and audio "
-            f"families are not ported")
-    prompt_len = prompt.shape[1]
-    logits, cache = MD.prefill_fn(params, cfg, {"tokens": prompt},
-                                  window=window, chunk_q=chunk_q,
-                                  cache_len=prompt_len + new_tokens)
+        other = sorted(set(extra_batch) - {"prefix_embeds"})
+        if other:
+            raise NotImplementedError(
+                f"extra_batch {other}: the audio encoder-decoder family is "
+                f"not ported")
+        batch.update(extra_batch)
+    n_prefix = 0
+    if batch.get("prefix_embeds") is not None:
+        n_prefix = batch["prefix_embeds"].shape[1]
+    prompt_total = prompt.shape[1] + n_prefix
+    logits, cache = MD.prefill_fn(params, cfg, batch, window=window,
+                                  chunk_q=chunk_q,
+                                  cache_len=prompt_total + new_tokens)
     out: List[Tensor] = []
     for t in range(new_tokens):
         tok = _select_token(logits, sample, seed, t)
         out.append(tok)
         if t + 1 < new_tokens:
             logits, cache = MD.decode_fn(params, cfg, tok, cache,
-                                         prompt_len + t, window=window)
+                                         prompt_total + t, window=window)
     return torch.stack(out, dim=1)

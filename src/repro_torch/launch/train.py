@@ -1,9 +1,13 @@
 """End-to-end training entry point of the port (cf. ``repro.launch.train``).
 
-Runs byzantine-robust training of a dense architecture on one device:
-``cuda`` unless ``--device cpu`` is passed (a missing GPU raises; nothing
-falls back).  ``--layers`` cuts the depth while keeping the published
-widths; ``--reduced`` takes the smoke-scale variant.  ``--mesh host``
+Runs byzantine-robust training of any decoder-only architecture of the
+registry (dense, MoE, SSM, hybrid, VLM) on one device: ``cuda`` unless
+``--device cpu`` is passed (a missing GPU raises; nothing falls back).
+``--layers`` cuts the depth while keeping the published widths (a
+multiple of the architecture's layer period); ``--reduced`` takes the
+smoke-scale variant.  A VLM config gets a bf16 normal soft prefix of
+``n_patches`` embeddings per sequence, drawn anew each step from
+``--seed``.  ``--mesh host``
 runs the aggregation mesh-native on ``launch.mesh.make_host_mesh``: a
 world of one rank (an in-process store), or every rank of a
 ``torchrun`` launch (one process a card, ``env://``); only rank 0
@@ -24,15 +28,18 @@ Usage:
       --steps 3 --seq 16 --attack adaptive_lie --ckpt-dir ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --layers 8 --steps 2 --trainer stream_global
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+      --arch jamba-1.5-large-398b --steps 2 --seq 16
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen2-1.5b --layers 2 --steps 3 --mesh host
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import itertools
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -40,7 +47,8 @@ import torch.distributed as dist
 from repro_torch import models as MD
 from repro_torch.checkpoint import save
 from repro_torch.comm import wire_stats
-from repro_torch.configs import ARCH_NAMES, RobustConfig, get_config
+from repro_torch.configs import ARCH_NAMES, ArchConfig, RobustConfig
+from repro_torch.core.attacks import fold_seed
 from repro_torch.data import lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist import (init_train_state, make_streaming_train_step,
@@ -97,6 +105,46 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def robust_config(args: argparse.Namespace) -> RobustConfig:
+    """The aggregation of the flags (validates n, f and the GAR)."""
+    return RobustConfig(n_workers=args.workers, f=args.f, gar=args.gar,
+                        use_kernels=args.use_kernels)
+
+
+def make_trainer(args: argparse.Namespace, cfg: ArchConfig,
+                 rcfg: RobustConfig, lr_fn: Callable[[Any], Any],
+                 mesh=None) -> Tuple[Any, Callable]:
+    """The optimizer and the step function of the flags' trainer.  Checks
+    the attack and codec specs (a wire attack needs a codec; the
+    streaming trainer refuses adaptive attacks and ef=1) before any model
+    is built."""
+    opt = make_optimizer(args.optimizer,
+                         **({"momentum": 0.9} if args.optimizer == "sgd"
+                            else {}))
+    kw = dict(chunk_q=min(args.seq, 512), attack=args.attack,
+              codec=args.codec, telemetry=True, shard_map_mesh=mesh)
+    if args.trainer == "stacked":
+        return opt, make_train_step(cfg, rcfg, opt, lr_fn, **kw)
+    return opt, make_streaming_train_step(
+        cfg, rcfg, opt, lr_fn, scope=args.trainer[len("stream_"):], **kw)
+
+
+def worker_batches(args: argparse.Namespace, cfg: ArchConfig,
+                   device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
+    """Step i's batch, split over the workers, for i = 0, 1, ...: the
+    seeded token stream and, for a VLM, the soft prefix of
+    ``fold_seed(seed, PREFIX_STREAM + i)``."""
+    data = lm_batches(cfg.vocab_size, args.workers * args.per_worker_batch,
+                      args.seq, seed=args.seed)
+    for i in itertools.count():
+        batch = {k: v.to(device) for k, v in next(data).items()}
+        if cfg.n_patches:
+            batch["prefix_embeds"] = MD.prefix_embeds(
+                cfg, batch["tokens"].shape[0],
+                fold_seed(args.seed, MD.PREFIX_STREAM + i), device)
+        yield split_workers(batch, args.workers)
+
+
 def run(argv: Optional[Sequence[str]] = None
         ) -> Tuple[Any, List[Dict[str, Any]]]:
     """Train as the flags say.  Returns the final parameters and one record
@@ -110,16 +158,12 @@ def run(argv: Optional[Sequence[str]] = None
     returns them; a process group that ``run`` started is destroyed when
     it returns or raises, one that was up before is left up."""
     args = parse_args(argv)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = MD.arch_config(args.arch, reduced=args.reduced,
+                         layers=args.layers)
     if args.per_worker_batch <= 0:
         raise SystemExit("--per-worker-batch must be positive")
     # validates (n, f, gar) before anything is built
-    rcfg = RobustConfig(n_workers=args.workers, f=args.f, gar=args.gar,
-                        use_kernels=args.use_kernels)
+    rcfg = robust_config(args)
     device = resolve_device(args.device)
     started = args.mesh == "host" and not dist.is_initialized()
     try:
@@ -140,22 +184,9 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
         if lead:
             print(msg, flush=True)
 
-    opt = make_optimizer(args.optimizer,
-                         **({"momentum": 0.9} if args.optimizer == "sgd"
-                            else {}))
     lr_fn = warmup_cosine(args.lr, warmup=max(args.steps // 20, 1),
                           total_steps=args.steps)
-    # validates the attack and codec specs (a wire attack needs a codec;
-    # the streaming trainer refuses adaptive attacks and ef=1) before the
-    # model is built
-    kw = dict(chunk_q=min(args.seq, 512), attack=args.attack,
-              codec=args.codec, telemetry=True, shard_map_mesh=mesh)
-    if args.trainer == "stacked":
-        step_fn = make_train_step(cfg, rcfg, opt, lr_fn, **kw)
-    else:
-        step_fn = make_streaming_train_step(
-            cfg, rcfg, opt, lr_fn, scope=args.trainer[len("stream_"):],
-            **kw)
+    opt, step_fn = make_trainer(args, cfg, rcfg, lr_fn, mesh)
     params = MD.init_model(cfg, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     say(f"[train] arch={cfg.name} layers={cfg.n_layers} "
@@ -174,12 +205,8 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
     state = init_train_state(opt, params, n_workers=args.workers,
                              attack=args.attack, attack_f=args.f,
                              codec=args.codec)
-    data = lm_batches(cfg.vocab_size, args.workers * args.per_worker_batch,
-                      args.seq, seed=args.seed)
     history: List[Dict[str, Any]] = []
-    for i in range(args.steps):
-        wb = {k: v.to(device) for k, v in
-              split_workers(next(data), args.workers).items()}
+    for i, wb in zip(range(args.steps), worker_batches(args, cfg, device)):
         t0 = time.perf_counter()
         params, state, metrics = step_fn(params, state, wb, args.seed + i)
         if device.type == "cuda":

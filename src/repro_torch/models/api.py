@@ -1,4 +1,5 @@
-"""Model API of the port (cf. ``repro.models.api``): dense decoders only.
+"""Model API of the port (cf. ``repro.models.api``): the decoder-only
+families (dense, MoE, SSM, hybrid, VLM prefix).
 
 * ``init_model(cfg, seed=..., device=...)``   -> nested-dict fp32 parameters
 * ``loss_fn(params, cfg, batch)``             -> scalar training loss
@@ -9,24 +10,65 @@
 * ``params_from_jax(tree, device=...)``       -> JAX parameters carried across
 * ``cache_from_jax(tree, device=...)``        -> a JAX decode cache carried
   across
+* ``arch_config(name, reduced=..., layers=...)`` -> the config the
+  launchers run
+* ``prefix_embeds(cfg, batch, seed, device)`` -> a VLM's random soft prefix
 
-The batch dict holds ``tokens`` (and ``labels`` for the loss).  The VLM
-``prefix_embeds`` and the audio ``frames`` come with their model families
-and are refused until then.
+The batch dict holds ``tokens`` (and ``labels`` for the loss), and for a
+VLM ``prefix_embeds`` (B, n_patches, d_model).  The audio ``frames`` and
+the encoder ``memory`` come with the encoder-decoder family and are
+refused until then.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_items, tree_map, tree_unflatten
 
 Tree = Any
+
+#: the seed stream of a VLM's soft prefix: training step i draws it from
+#: ``fold_seed(seed, PREFIX_STREAM + i)``, as the JAX launcher's
+#: ``fold_in(key, 20_000 + i)``; serving draws it from step 0's
+PREFIX_STREAM = 20_000
+
+
+def arch_config(name: str, *, reduced: bool = False, layers: int = 0
+                ) -> ArchConfig:
+    """The registered config ``name``, its smoke-scale variant if
+    ``reduced``, cut to ``layers`` layers if nonzero.  A depth that is not
+    a multiple of the layer period (the superblock of
+    ``transformer.layer_specs``) raises ``ValueError``."""
+    cfg = get_config(name)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        period = len(T.layer_specs(cfg))
+        if layers % period:
+            raise ValueError(
+                f"--layers {layers}: {cfg.name} repeats a period of "
+                f"{period} layers; pass a multiple of {period}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def prefix_embeds(cfg: ArchConfig, batch: int, seed: int,
+                  device: Union[str, torch.device]) -> torch.Tensor:
+    """A VLM's soft prefix (batch, n_patches, d_model): bf16 standard
+    normals from the generator of ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn((batch, cfg.n_patches, cfg.d_model), generator=gen,
+                       device=device).to(torch.bfloat16)
 
 
 def init_model(cfg: ArchConfig, *, seed: int = 0,
@@ -39,15 +81,15 @@ def init_model(cfg: ArchConfig, *, seed: int = 0,
 
 def loss_fn(params: Tree, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             *, window: int = 0, chunk_q: int = 1024) -> torch.Tensor:
+    _check_batch(batch)
     return T.lm_loss(params, cfg, batch, window=window, chunk_q=chunk_q)
 
 
 def _check_batch(batch: Dict[str, torch.Tensor]) -> None:
-    for key, family in (("prefix_embeds", "vlm"), ("frames", "audio "
-                                                   "encoder-decoder")):
-        if batch.get(key) is not None:
-            raise NotImplementedError(
-                f"batch[{key!r}]: the {family} family is not ported")
+    if batch.get("frames") is not None:
+        raise NotImplementedError(
+            "batch['frames']: the audio encoder-decoder family is not "
+            "ported")
 
 
 def forward_fn(params: Tree, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -56,17 +98,20 @@ def forward_fn(params: Tree, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     """Inference forward (no cache): logits of the last ``logits_tail``
     positions."""
     _check_batch(batch)
-    T.check_decodable(cfg)
-    return T.apply_lm(params, cfg, batch["tokens"], window=window,
-                      chunk_q=chunk_q, logits_tail=logits_tail)
+    logits, _ = T.apply_lm(params, cfg, batch["tokens"],
+                           prefix_embeds=batch.get("prefix_embeds"),
+                           window=window, chunk_q=chunk_q,
+                           logits_tail=logits_tail)
+    return logits
 
 
 def prefill_fn(params: Tree, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                *, window: int = 0, chunk_q: int = 1024, cache_len: int = 0
                ) -> Tuple[torch.Tensor, Tree]:
     _check_batch(batch)
-    return T.prefill(params, cfg, batch["tokens"], window=window,
-                     chunk_q=chunk_q, cache_len=cache_len)
+    return T.prefill(params, cfg, batch["tokens"],
+                     prefix_embeds=batch.get("prefix_embeds"),
+                     window=window, chunk_q=chunk_q, cache_len=cache_len)
 
 
 def decode_fn(params: Tree, cfg: ArchConfig, token: torch.Tensor, cache: Tree,
@@ -102,8 +147,12 @@ def cache_from_jax(tree: Tree, *, device: Optional[Union[str, torch.device]]
                    = None) -> Tree:
     """A JAX decode cache (nested dicts of arrays, converted with
     ``np.asarray(x.astype(jnp.float32))``) as the port's: same keys and
-    layouts, bf16 as the JAX package keeps it (the values are
-    bf16-representable, so the cast back is exact)."""
+    layouts, each leaf in the type the JAX package keeps it: an attention
+    layer's ``k`` / ``v`` bf16 (the values are bf16-representable, so the
+    cast back is exact), a mamba mixer's ``conv`` / ``h`` fp32."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(
-        np.array(a, dtype=np.float32)).to(torch.bfloat16).to(dev), tree)
+    items = list(tree_items(tree))
+    leaves = [torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        torch.bfloat16 if path[-1] in ("k", "v") else torch.float32).to(dev)
+        for path, a in items]
+    return tree_unflatten(tree, leaves)

@@ -61,6 +61,15 @@ def embedding_attend(p: dict, x: Tensor) -> Tensor:
     return x @ p["table"].to(x.dtype).T
 
 
+def sinusoid(pos: Tensor, d: int) -> Tensor:
+    """Classic transformer sinusoids of absolute positions ``pos`` (any
+    shape, on its device): (..., d) fp32, sines then cosines."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    inv = torch.exp(-math.log(10000.0) * 2.0 * dim / d)
+    ang = pos.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ------------------------------------------------------------------ norms
 def rmsnorm_init(d: int, device) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}

@@ -253,3 +253,23 @@ def test_launcher_ckpt_dir_is_read_by_jax(tmp_path, capsys):
     _assert_same_bits(got, want)
     back = params_from_jax(jax.tree.map(np.asarray, out), device="cpu")
     _assert_same_bits(tree_leaves(back), want)
+
+
+def test_hybrid_tree_round_trips_jax_port_jax(tmp_path):
+    """The reduced jamba hybrid (mamba and attention mixers, dense and MoE
+    MLPs): JAX's file restores into the port's own tree (``init_model``'s
+    layout), the port writes it back, and JAX restores that file, every
+    leaf bit for bit along the way."""
+    from repro_torch import models as TMD
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    jparams = JMD.init_model(jax.random.key(3),
+                             jget_config("jamba-1.5-large-398b").reduced())
+    jsave(str(tmp_path / "j"), 1, {"params": jparams})
+    like = {"params": TMD.init_model(cfg, seed=0, device="cpu")}
+    tree = restore(str(tmp_path / "j"), 1, like)
+    _assert_same_bits(_leaves(tree), jax.tree.leaves(jparams))
+    save(str(tmp_path / "t"), 1, tree)
+    back = jrestore(str(tmp_path / "t"), 1,
+                    {"params": jax.tree.map(jnp.zeros_like, jparams)})
+    _assert_same_bits(jax.tree.leaves(back), jax.tree.leaves(jparams))

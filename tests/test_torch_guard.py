@@ -1,6 +1,7 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
-``chip_smoke.py``, ``tools/time_k1.py``, ``examples/quickstart_torch.py`` or
-``examples/robust_serving_torch.py`` imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``, and the smoke
+``chip_smoke.py``, ``tools/time_k1.py``, ``examples/quickstart_torch.py``,
+``examples/robust_serving_torch.py`` or
+``examples/streaming_at_scale_torch.py`` imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``, and the smoke
 script refuses to run without a card or outside a checkout."""
 import ast
 import os
@@ -16,7 +17,8 @@ PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "time_k1.py",
     REPO / "examples" / "quickstart_torch.py",
-    REPO / "examples" / "robust_serving_torch.py"]
+    REPO / "examples" / "robust_serving_torch.py",
+    REPO / "examples" / "streaming_at_scale_torch.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -101,6 +103,18 @@ def test_the_serving_modules_are_covered():
                  "models/api.py", "models/__init__.py", "core/api.py"):
         assert f"src/repro_torch/{want}" in names
     assert "examples/robust_serving_torch.py" in names
+
+
+def test_the_model_families_are_covered():
+    """The decoder families' modules, their configs and the streaming
+    example are among the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("models/moe.py", "models/ssm.py", "models/transformer.py",
+                 "configs/base.py", "configs/__init__.py",
+                 "configs/qwen3_moe_30b_a3b.py", "configs/falcon_mamba_7b.py",
+                 "configs/jamba_1_5_large_398b.py", "configs/internvl2_1b.py"):
+        assert f"src/repro_torch/{want}" in names
+    assert "examples/streaming_at_scale_torch.py" in names
 
 
 def test_the_mesh_worker_imports_no_jax():

@@ -366,7 +366,9 @@ def test_categorical_draws_follow_the_distribution():
 
 # ---------------------------------------------------------------- refusals
 def _other_family():
-    return dataclasses.replace(_cfgs()[1], family="moe", name="moe-cfg")
+    """A family the port still lacks: the audio encoder-decoder (the
+    decoder-only families all run)."""
+    return dataclasses.replace(_cfgs()[1], family="audio", name="audio-cfg")
 
 
 def _refusals():
@@ -377,21 +379,21 @@ def _refusals():
     cache = TMD.init_cache_fn(params, tcfg, 1, 8)
     moe, none = _other_family(), dataclasses.replace(tcfg, rope="none")
     return {
-        "prefill_moe": (NotImplementedError, "dense decoder family",
+        "prefill_moe": (NotImplementedError, "encoder-decoder family",
                         lambda: TMD.prefill_fn(params, moe, batch)),
-        "decode_moe": (NotImplementedError, "dense decoder family",
+        "decode_moe": (NotImplementedError, "encoder-decoder family",
                        lambda: TMD.decode_fn(params, moe, tok[:, 0], cache,
                                              4)),
-        "forward_moe": (NotImplementedError, "dense decoder family",
+        "forward_moe": (NotImplementedError, "encoder-decoder family",
                         lambda: TMD.forward_fn(params, moe, batch)),
-        "init_cache_moe": (NotImplementedError, "dense decoder family",
+        "init_cache_moe": (NotImplementedError, "encoder-decoder family",
                            lambda: TMD.init_cache_fn(params, moe, 1, 8)),
         "decode_rope_none": (NotImplementedError, "rope='none'",
                              lambda: TMD.decode_fn(params, none, tok[:, 0],
                                                    cache, 4)),
         "prefill_rope_none": (NotImplementedError, "rope='none'",
                               lambda: TMD.prefill_fn(params, none, batch)),
-        "prefix_embeds": (NotImplementedError, "prefix_embeds",
+        "prefix_embeds": (ValueError, "prefix_embeds",
                           lambda: TMD.prefill_fn(params, tcfg, {
                               **batch, "prefix_embeds": torch.zeros(1)})),
         "frames": (NotImplementedError, "frames",
@@ -638,8 +640,8 @@ def test_apply_lm_tail_readout_is_the_full_readouts_tail():
     _, tcfg = _cfgs()
     params = TMD.init_model(tcfg, seed=0, device="cpu")
     tok = torch.from_numpy(_tokens((B, S), 17))
-    full = TT.apply_lm(params, tcfg, tok)
-    tail = TT.apply_lm(params, tcfg, tok, logits_tail=3)
+    full, _ = TT.apply_lm(params, tcfg, tok)
+    tail, _ = TT.apply_lm(params, tcfg, tok, logits_tail=3)
     assert tuple(tail.shape) == (B, 3, tcfg.vocab_size)
     _close(tail, full[:, -3:], 1e-6)
 
