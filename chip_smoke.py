@@ -242,12 +242,51 @@ timing), each through its entry point at the published widths:
   prefill and 2 steps each within one bf16 ulp of the largest logit,
   for falcon-mamba-7b at full width and the reduced jamba (window 0 and
   64);
-* every registered architecture reduced: one stacked step (K1 and K2
-  once per leaf, nothing else) and 4 served tokens (no kernel);
+* every registered architecture reduced (whisper-tiny's 2 + 2 layers and
+  16 frames included): one stacked step (K1 and K2 once per leaf, nothing
+  else) and 4 served tokens (no kernel);
 * K1 and K2 on the qwen3-moe embedding stack and an (11, 128 x 2048 x
   768) expert stack, timed (median of 3) beside their plain versions,
   ``torch.mm`` for K1 and their bounds (the ``kernels`` line's
   ``moe_leaves``), the expert stack held to the plain versions.
+
+K2 and K3 above theta = 32 (the counted variants, after phase 8): K2 at
+theta in {33, 34, 40, 64, 128}, n = theta + 6 and 256, beta in {1,
+ceil(theta / 2), theta}, d in {1, 4095, 100003}, on one-hot / uniform plans
+with ties and on a stack with NaN, +-inf, +-0 and 1e30; K3 at the same
+(theta, beta) on normal, all-tied and NaN-laden inputs: bit for bit the
+plain versions (NaN in the same places), every launch counted under
+``theta>32``.
+
+The encoder-decoder phases (after the decoder families, before phase 11's
+timing), whisper-tiny at its published widths and full depth (4 encoder
+and 4 decoder layers, d_model 384, 6 heads, d_ff 1536, vocab 51865, 1500
+frames; 56,378,112 parameters in 41 leaves):
+
+* training through ``launch/train.py --arch whisper-tiny`` on the training
+  phase's flags (n = 11, f = 2, ``inf``, seq 128, 2 sequences a worker, 3
+  steps; the frames drawn from ``--seed`` and the step): K1 and K2 once
+  per leaf per step (41 each), every K2 launch on the theta = 5 kernel,
+  nothing else, byzantine mass 0; the first step run twice bit for bit
+  and a third run traced.  Then at n = 40 (theta = 34, beta = 30), 2
+  steps: K1 and K2 once per leaf per step, every K2 launch on the counted
+  variant, byzantine mass 0.  Then one batch's real gradients at n = 40
+  (``inf``): the fused apply (K2 41, all counted) and ``fused=False`` (K3
+  41, all counted, each held bit for bit to its plain version on the
+  g_ext / g_agr the substrate formed; every coordinate where the two
+  applies differ by more than 1e-6 x max(1, |fused|) a float64
+  near-tie); both counted variants timed over the 41 leaves, each leaf
+  bit for bit its plain version, beside their plain versions and bounds
+  (the ``theta>32`` entries of K2 and K3 in the ``kernels`` line);
+* serving through ``launch/serve.py --arch whisper-tiny`` (batch 4,
+  prompt 128 after 1500 frames, 32 tokens; no kernel, the prefill logits
+  the forward's last row bit for bit); prefill and 2 decode steps against
+  the forward within one bf16 ulp of the largest logit (window 0 and 64);
+  the robust ensemble of 11 replicas (9 identical honest; replicas 0 and
+  1 their lm_head x 1e4 / x -1e4, each replica with its own cross K/V), 16
+  greedy tokens: K1 16 and K2 16 (theta = 5) and nothing else, byzantine
+  mass 0, the fused logits the honest model's bit for bit, the tokens
+  ``generate``'s with the same frames.
 
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
@@ -408,6 +447,19 @@ SSM_SERVE_ARGS = with_flags(SERVE_ARGS, arch="falcon-mamba-7b")
 MOE_SERVE_LAYERS = 2
 MOE_SERVE_ARGS = with_flags(SERVE_ARGS, arch="qwen3-moe-30b-a3b") + [
     "--layers", str(MOE_SERVE_LAYERS)]
+#: K2 at theta > 32 (the counted variant) on the card tests' cases
+#: (kernels/select_cases.py) at n = theta + WIDE_N_EXTRA and 256
+WIDE_N_EXTRA = 6
+#: the encoder-decoder phases: whisper-tiny at its published widths and
+#: full depth (4 encoder and 4 decoder layers, 1500 frames) on the
+#: training phase's flags; then at n = 40 (theta = 34, beta = 30: every K2
+#: launch on the counted variant), 2 steps
+WHISPER_ARGS = with_flags(TRAIN_ARGS, arch="whisper-tiny", layers=0)
+WIDE_N = 40
+THETA_WIDE = WIDE_N - 2 * F - 2
+WHISPER_WIDE_ARGS = with_flags(WHISPER_ARGS, workers=WIDE_N, steps=2)
+WHISPER_LEAVES = 41
+WHISPER_SERVE_ARGS = with_flags(SERVE_ARGS, arch="whisper-tiny")
 
 
 class SmokeFailure(Exception):
@@ -470,33 +522,20 @@ def plan_of(raw):
 
 
 def synthetic_plan(torch, theta, n, seed):
-    """(theta, n) weights on the card as a multi-Bulyan plan shapes them:
-    w_ext one-hot (rows drawn with repeats, so extracted values tie),
-    w_agr uniform 1/m over m drawn rows (every third slot repeats the one
-    before, so distances tie)."""
-    gen = torch.Generator()
-    gen.manual_seed(seed)
-    w_ext = torch.zeros((theta, n))
-    w_ext[torch.arange(theta), torch.randint(0, n, (theta,),
-                                             generator=gen)] = 1.0
-    w_agr = torch.zeros((theta, n))
-    for t in range(theta):
-        if t % 3 == 2:
-            w_agr[t] = w_agr[t - 1]
-            continue
-        m = int(torch.randint(1, n + 1, (1,), generator=gen))
-        rows = torch.randperm(n, generator=gen)[:m]
-        w_agr[t, rows] = torch.tensor(1.0) / torch.tensor(float(m))
-    return w_ext.cuda(), w_agr.cuda()
+    """(theta, n) weights on the card as a multi-Bulyan plan shapes them
+    (``select_cases.synthetic_plan``: w_ext one-hot with repeated rows,
+    w_agr uniform with repeated slots, so values and distances tie)."""
+    from repro_torch.kernels import select_cases
+    return select_cases.synthetic_plan(theta, n, seed, "cuda")
 
 
-def k2_variant_check(label, launches):
-    """Every K2 launch counted since the last reset took the kernel compiled
-    for THETA_MAIN."""
+def k2_variant_check(label, launches, theta=THETA_MAIN):
+    """Every K2 launch counted since the last reset took the variant of
+    ``theta`` (the kernel compiled for THETA_MAIN on the main path)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_select import variant_name
     got = ops.fused_select_variant_counts()
-    want = {variant_name(THETA_MAIN): launches} if launches else {}
+    want = {variant_name(theta): launches} if launches else {}
     check(got == want, f"{label}: K2 variants {got}, want {want}")
     return got
 
@@ -989,6 +1028,14 @@ def same_bits(torch, a, b):
     return tuple(a.shape) == tuple(b.shape) and \
         torch.equal(torch.isnan(a), torch.isnan(b)) and \
         torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def abs_err(torch, got, want):
+    """The largest |got - want|: 0 where the two hold the same value (NaN
+    and NaN included), inf where only one is NaN."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    diff = torch.where(same, torch.zeros_like(got), torch.abs(got - want))
+    return float(torch.nan_to_num(diff, nan=math.inf).max())
 
 
 def padded(torch, x, W):
@@ -1579,10 +1626,9 @@ def mesh_tiles(torch):
             m = tile.shape[1]
             ms[mesh] += time_ms(torch, lambda: fused_select_cuda(
                 tile, we_p, wa_p, beta), 5 if m > 10_000_000 else 20)
-            b_bytes[mesh] += 4 * (n_pad * m + m + 2 * theta * n_pad) \
-                / HBM_BYTES_PER_S
-            b_ops[mesh] += (4 * theta * n_pad + select_phase_ops(
-                theta, beta)) * m / FP32_FLOP_PER_S
+            b = k2_bound_s(n_pad, m, theta, beta)
+            b_bytes[mesh] += b["bytes"]
+            b_ops[mesh] += b["operations"]
             del tile
         log(f"mesh tiles {mesh}: {W * M} ranks x {len(leaves)} leaves "
             f"(n_pad {n_pad}, weights zero-padded), the ranks of a model "
@@ -1602,10 +1648,9 @@ def mesh_tiles(torch):
         m = x.shape[1]
         ms["replicated"] += time_ms(torch, lambda: fused_select_cuda(
             x, we, wa, beta), 5 if m > 10_000_000 else 20)
-        b_bytes["replicated"] += 4 * (N * m + m + 2 * theta * N) \
-            / HBM_BYTES_PER_S
-        b_ops["replicated"] += (4 * theta * N + select_phase_ops(
-            theta, beta)) * m / FP32_FLOP_PER_S
+        b = k2_bound_s(N, m, theta, beta)
+        b_bytes["replicated"] += b["bytes"]
+        b_ops["replicated"] += b["operations"]
     for key in ms:
         bound[key] = 1e3 * max(b_bytes[key], b_ops[key])
     bound_by = {key: "bytes" if b_bytes[key] >= b_ops[key] else "operations"
@@ -1633,12 +1678,12 @@ class Tee(io.TextIOBase):
 
 
 def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True,
-                keep_params=False):
+                keep_params=False, theta=THETA_MAIN):
     """One ``train.run`` with every launch count set to 0 just before and
     read just after; each kernel must launch ``want_per_leaf_step[name]``
-    times per leaf per step (0: never).  Returns (counts, leaf shapes,
-    records, printed text, the final parameters if ``keep_params`` else
-    None)."""
+    times per leaf per step (0: never), every K2 launch on the variant of
+    ``theta``.  Returns (counts, leaf shapes, records, printed text, the
+    final parameters if ``keep_params`` else None)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
@@ -1668,7 +1713,7 @@ def train_phase(torch, label, argv, want_per_leaf_step, *, zero_byz=True,
             for name, k in want_per_leaf_step.items()}
     check(counts == want, f"{label}: launches {counts}, want {want} "
           f"({len(shapes)} leaves x {steps} steps)")
-    variants = k2_variant_check(label, counts["fused_select"])
+    variants = k2_variant_check(label, counts["fused_select"], theta)
     step_s = [rec["seconds"] for rec in history]
     log(f"{label}: {steps} steps, losses "
         f"{[round(r['loss'], 4) for r in history]}, byz_mass "
@@ -2542,11 +2587,12 @@ def family_training(torch, power):
     return counts, numbers
 
 
-def decode_against_forward(torch, label, cfg, params, window):
-    """Prefill (prompt SERVE_PROMPT) and CONSISTENCY_STEPS decode steps
-    against ``forward_fn`` on the grown prompt, each within one bf16 ulp
-    of its largest forward logit (:func:`bf16_spacing`); returns the
-    largest difference and the largest such ulp."""
+def decode_against_forward(torch, label, cfg, params, window, extra=None):
+    """Prefill (prompt SERVE_PROMPT, after ``extra``: an encoder-decoder's
+    frames) and CONSISTENCY_STEPS decode steps against ``forward_fn`` on
+    the grown prompt, each within one bf16 ulp of its largest forward
+    logit (:func:`bf16_spacing`); returns the largest difference and the
+    largest such ulp."""
     from repro_torch import models as MD
     worst, ulp_max = 0.0, 0.0
 
@@ -2560,7 +2606,8 @@ def decode_against_forward(torch, label, cfg, params, window):
 
     with torch.no_grad():
         cur = {"tokens": serve_prompt(torch, SERVE_BATCH, SERVE_PROMPT,
-                                      seed=11) % cfg.vocab_size}
+                                      seed=11) % cfg.vocab_size,
+               **(extra or {})}
         last, cache = MD.prefill_fn(params, cfg, cur, window=window,
                                     chunk_q=SERVE_PROMPT)
         held(last, MD.forward_fn(params, cfg, cur, window=window,
@@ -2568,7 +2615,8 @@ def decode_against_forward(torch, label, cfg, params, window):
         for step in range(CONSISTENCY_STEPS):
             tok = serve_prompt(torch, SERVE_BATCH, 1,
                                seed=200 + step)[:, 0] % cfg.vocab_size
-            cur = {"tokens": torch.cat([cur["tokens"], tok[:, None]], 1)}
+            cur = {**cur, "tokens": torch.cat([cur["tokens"],
+                                               tok[:, None]], 1)}
             got, cache = MD.decode_fn(params, cfg, tok, cache,
                                       SERVE_PROMPT + step, window=window)
             held(got, MD.forward_fn(params, cfg, cur, window=window,
@@ -2694,9 +2742,7 @@ def moe_leaves(torch):
                 x, plan.w_ext, plan.w_agr, plan.beta), 1)}
         k1_b = {"bytes": 4 * (N * m + N * N + N) / HBM_BYTES_PER_S,
                 "operations": N * (N + 1) * m / FP32_FLOP_PER_S}
-        k2_b = {"bytes": 4 * (N * m + m + 2 * theta * N) / HBM_BYTES_PER_S,
-                "operations": (4 * theta * N + select_phase_ops(
-                    theta, plan.beta)) * m / FP32_FLOP_PER_S}
+        k2_b = k2_bound_s(N, m, theta, plan.beta)
         for k, b in (("k1", k1_b), ("k2", k2_b)):
             r[f"{k}_bound_by"] = max(b, key=b.get)
             r[f"{k}_bound_ms"] = 1e3 * max(b.values())
@@ -2710,6 +2756,379 @@ def moe_leaves(torch):
         del x, raw
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------ theta > 32 and whisper
+def wide_theta_sweep(torch):
+    """K2 and K3 at theta > 32 (the counted variants) on the card tests'
+    cases (``kernels/select_cases.py``: theta in WIDE_THETAS, beta in {1,
+    ceil(theta / 2), theta}, plans and inputs with ties, NaN, +-inf, +-0
+    and 1e30), K2 at n = theta + WIDE_N_EXTRA and 256: bit for bit the
+    plain versions, NaN in the same places, every launch counted under
+    ``"theta>32"``.  Returns the number of cases."""
+    from repro_torch.kernels import ops, ref, select_cases
+    from repro_torch.kernels.coord_select import coord_select_cuda
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    runs = [(f"K2 theta={theta} n={n}", "fused_select",
+             select_cases.k2_cases(theta, n, "cuda"), fused_select_cuda,
+             ref.fused_select_ref)
+            for theta in select_cases.WIDE_THETAS
+            for n in (theta + WIDE_N_EXTRA, 256)]
+    runs += [(f"K3 theta={theta} ties={ties}", "coord_select",
+              select_cases.k3_cases(theta, ties, "cuda"), coord_select_cuda,
+              ref.coord_select_ref)
+             for theta in select_cases.WIDE_THETAS for ties in (False, True)]
+    cases = 0
+    for run, name, run_cases, kernel, plain in runs:
+        ops.reset_launch_counts()
+        launched = 0
+        for label, args, non_finite in run_cases:
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            check(same_bits(torch, got, want), f"{label}: differs from its "
+                  f"plain version")
+            check(not non_finite or bool(torch.isnan(want).any()),
+                  f"{label}: no NaN in the plain version's output")
+            launched += 1
+        variants = ops.fused_select_variant_counts() \
+            if name == "fused_select" else ops.coord_select_variant_counts()
+        check(variants == {"theta>32": launched},
+              f"{run}: variants {variants}")
+        cases += launched
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    log(f"K2 and K3 at theta > 32 (the counted variants): {cases} cases, "
+        f"theta in {list(select_cases.WIDE_THETAS)}, K2 at n = theta + "
+        f"{WIDE_N_EXTRA} and 256, beta in {{1, ceil(theta/2), theta}}, d in "
+        f"{list(select_cases.WIDE_WIDTHS)}, ties and non-finite inputs: bit "
+        f"for bit the plain versions (NaN in the same places), every launch "
+        f"counted under theta>32")
+    return cases
+
+
+def wide_entry(wide, k, launches):
+    """The ``kernels`` line's numbers of K2's or K3's counted variant
+    (``k``: "k2" or "k3"), timed over whisper's leaves at n = WIDE_N, and
+    its largest difference from its plain version there; the launches
+    from the phase that ran it."""
+    return {"theta": wide["theta"], "n": WIDE_N, "launches": launches,
+            "max_abs_err": wide[f"{k}_err"], "ms": wide[k],
+            "plain_ms": wide[f"{k}_plain"],
+            "bound_ms": wide[f"{k}_bound"],
+            "bound_by": wide[f"{k}_bound_by"], "library_ms": None}
+
+
+def whisper_batch(torch, argv):
+    """The model's config and step 0's worker batch of ``argv`` (the
+    launcher's tokens and frames)."""
+    from repro_torch import models as MD
+    from repro_torch.launch import train
+    args = train.parse_args(argv)
+    cfg = MD.arch_config(args.arch, reduced=args.reduced,
+                         layers=args.layers)
+    return cfg, next(train.worker_batches(args, cfg, torch.device("cuda")))
+
+
+def wide_two_step(torch, power):
+    """One batch's real whisper-tiny gradients at n = WIDE_N (the ``inf``
+    attack): the fused apply (K2, every launch on the counted variant) and
+    ``fused=False`` (K3 once per leaf, every launch on the counted variant
+    and held bit for bit to ``coord_select_ref`` on the g_ext / g_agr the
+    substrate formed; K2 never).  Every coordinate where the two applies
+    differ by more than 1e-6 x max(1, |fused|) must be a near-tie
+    (:func:`near_ties`).  Then both variants timed over the leaves beside
+    their plain versions and bounds.  Returns (the fused apply's counts,
+    the fused=False counts, the timing numbers)."""
+    from repro_torch import models as MD
+    from repro_torch.core import api
+    from repro_torch.dist import inject_byzantine, per_worker_grads
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.coord_select import coord_select_cuda
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    from repro_torch.tree import tree_leaves
+    label = f"whisper two-step at n = {WIDE_N}"
+    cfg, batch = whisper_batch(torch, WHISPER_WIDE_ARGS)
+    params = MD.init_model(cfg, seed=0, device="cuda")
+    _, grads = per_worker_grads(params, cfg, batch, chunk_q=128)
+    del params, batch
+    with torch.no_grad():
+        inject_byzantine(grads, F, "inf", seed=0)
+    leaves = [x.reshape(WIDE_N, -1) for x in tree_leaves(grads)]
+    numels = [x.shape[1] for x in leaves]
+    fused = api.AggregatorBackend("multi_bulyan", F)
+    with torch.no_grad():
+        plan = fused.plan(fused.stats(grads))
+        theta, beta = plan.w_ext.shape[0], plan.beta
+        check(theta == THETA_WIDE, f"{label}: theta {theta}")
+        byz = float(torch.sum(plan.selection_weights()[:F]))
+        check(byz == 0.0, f"{label}: byzantine plan mass {byz}")
+        ops.reset_launch_counts()
+        out_f = [o.reshape(-1) for o in tree_leaves(fused.apply(plan, grads))]
+        torch.cuda.synchronize()
+        counts_f = ops.launch_counts()
+    want = {**NO_KERNELS, "fused_select": len(leaves)}
+    check(counts_f == want, f"{label}: fused launches {counts_f}, want {want}")
+    k2_variant_check(f"{label}, fused", len(leaves), theta)
+    real_k3 = ops.coord_select
+    held = []
+
+    def k3_held_to_plain(g_ext, g_agr, b):
+        got = real_k3(g_ext, g_agr, b)
+        check(torch.equal(got, ref.coord_select_ref(g_ext, g_agr, b)),
+              f"{label}: K3 on the substrate's {tuple(g_ext.shape)} inputs "
+              f"differs from its plain version")
+        held.append(tuple(g_ext.shape))
+        return got
+
+    backend = api.AggregatorBackend("multi_bulyan", F, fused=False)
+    ops.coord_select = k3_held_to_plain
+    try:
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            out = backend.apply(plan, grads)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            variants = ops.coord_select_variant_counts()
+    finally:
+        ops.coord_select = real_k3
+    want = {**NO_KERNELS, "coord_select": len(leaves)}
+    check(counts == want, f"{label}: fused=False launches {counts}, want "
+          f"{want}")
+    check(variants == {"theta>32": len(leaves)},
+          f"{label}: K3 variants {variants}")
+    n_diff = n_tie = 0
+    for x, o2, of in zip(leaves, tree_leaves(out), out_f):
+        o2 = o2.reshape(-1)
+        check(bool(torch.isfinite(o2).all()), f"{label}: non-finite")
+        bad = torch.abs(o2 - of) > K2_TOL * torch.clamp(of.abs(), min=1.0)
+        idx = torch.nonzero(bad).reshape(-1)
+        n_diff += len(idx)
+        for c0 in range(0, len(idx), 1 << 16):
+            n_tie += int(near_ties(torch, x, plan, idx[c0:c0 + (1 << 16)])
+                         .sum())
+    check(n_diff == n_tie, f"{label}: {n_diff - n_tie} of {n_diff} "
+          f"differing coordinates are not near-ties")
+    log(f"{label} (theta {theta}, beta {beta}): fused launches {counts_f} "
+        f"(K2 all on theta>32); fused=False launches {counts}, K3 variants "
+        f"{variants}, all {len(held)} K3 launches bit for bit their plain "
+        f"version; {n_diff} of {sum(numels):,} coordinates differ from the "
+        f"fused apply by more than {K2_TOL} x max(1, |fused|), all "
+        f"near-ties")
+    del out, out_f
+    torch.cuda.empty_cache()
+    # both variants over the leaves: K2 on the stack, K3 on the products
+    tot = {k: 0.0 for k in ("k2", "k2_plain", "k2_err", "k3", "k3_plain",
+                            "k3_err")}
+    bound = {k: {"bytes": 0.0, "operations": 0.0} for k in ("k2", "k3")}
+    we, wa = plan.w_ext, plan.w_agr
+    for i, x in enumerate(leaves):
+        m = x.shape[1]
+        reps = 3 if m > 10_000_000 else 10
+        got = fused_select_cuda(x, we, wa, beta)
+        want = ref.fused_select_ref(x, we, wa, beta)
+        tot["k2_err"] = max(tot["k2_err"], abs_err(torch, got, want))
+        check(same_bits(torch, got, want), f"{label}: K2 on timed leaf {i} "
+              f"d={m} differs from its plain version")
+        del got, want
+        tot["k2"] += time_ms(torch, lambda: fused_select_cuda(
+            x, we, wa, beta), reps)
+        tot["k2_plain"] += time_ms(torch, lambda: ref.fused_select_ref(
+            x, we, wa, beta), 1)
+        ge, ga = torch.matmul(we, x), torch.matmul(wa, x)
+        got = coord_select_cuda(ge, ga, beta)
+        want = ref.coord_select_ref(ge, ga, beta)
+        tot["k3_err"] = max(tot["k3_err"], abs_err(torch, got, want))
+        check(same_bits(torch, got, want), f"{label}: K3 on timed leaf {i}'s "
+              f"products differs from its plain version")
+        del got, want
+        tot["k3"] += time_ms(torch, lambda: coord_select_cuda(ge, ga, beta),
+                             reps)
+        tot["k3_plain"] += time_ms(
+            torch, lambda: ref.coord_select_ref(ge, ga, beta), 1)
+        del ge, ga
+        for k, b in (("k2", k2_bound_s(WIDE_N, m, theta, beta)),
+                     ("k3", k3_bound_s(m, theta, beta))):
+            for key in b:
+                bound[k][key] += b[key]
+    for k, b in bound.items():
+        tot[f"{k}_bound_by"] = max(b, key=b.get)
+        tot[f"{k}_bound"] = 1e3 * max(b.values())
+    tot.update(theta=theta, beta=beta, leaves=len(leaves),
+               coordinates=sum(numels))
+    log(f"{label}: the counted variants over the {len(leaves)} leaves "
+        f"({sum(numels):,} coordinates x {WIDE_N} workers), ms per step: "
+        f"K2 {tot['k2']:.4f} (plain {tot['k2_plain']:.4f}, bound "
+        f"{tot['k2_bound']:.4f}, {tot['k2_bound_by']}), K3 on the products "
+        f"{tot['k3']:.4f} (plain {tot['k3_plain']:.4f}, bound "
+        f"{tot['k3_bound']:.4f}, {tot['k3_bound_by']}); card {power}")
+    del grads, leaves
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    return counts_f, counts, tot
+
+
+def encdec_training(torch, power):
+    """whisper-tiny through ``launch/train.py`` at its published widths and
+    full depth: at n = 11 (the training phase's flags: K1 and K2 once per
+    leaf per step, 41 each, every K2 launch on the theta = 5 kernel,
+    nothing else, byzantine mass 0), its first step repeated bit for bit
+    and a third run traced (:func:`repeated_step`); at n = WIDE_N (theta =
+    34: every K2 launch on the counted variant, K1 and K2 once per leaf
+    per step, byzantine mass 0); then one batch's real gradients at n =
+    WIDE_N through the fused and the two-step applies
+    (:func:`wide_two_step`).  Returns ({phase: counts}, {phase: numbers},
+    the counted variants' timing)."""
+    counts, numbers = {}, {}
+    for phase, label, argv, theta in (
+            ("whisper_training", "whisper training (whisper-tiny, full "
+             f"depth, n = {N})", WHISPER_ARGS, THETA_MAIN),
+            ("whisper_wide", f"whisper training at n = {WIDE_N} (theta = "
+             f"{THETA_WIDE})", WHISPER_WIDE_ARGS, THETA_WIDE)):
+        t0 = time.perf_counter()
+        counts[phase], shapes, hist, _, _ = train_phase(
+            torch, label, argv, K1_K2, theta=theta)
+        check(len(shapes) == WHISPER_LEAVES, f"{label}: {len(shapes)} leaves")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = [round(r["seconds"], 4) for r in hist[1:]]
+        numbers[phase] = {"steady_step_s": steady, "peak_gib": peak,
+                          "losses": [r["loss"] for r in hist]}
+        if phase == "whisper_training":
+            repeated_step(torch, label, argv)
+        log(f"{label}: steady step seconds {steady}, peak memory "
+            f"{peak:.2f} GiB; phase {time.perf_counter() - t0:.1f} s; card "
+            f"{power}")
+    t0 = time.perf_counter()
+    counts["whisper_fused"], counts["whisper_two_step"], wide = \
+        wide_two_step(torch, power)
+    log(f"whisper two-step phase {time.perf_counter() - t0:.1f} s")
+    return counts, numbers, wide
+
+
+def encdec_robust_serving(torch, power):
+    """N replicas of whisper-tiny at full depth (N - F identical honest
+    ones; replicas 0 and 1 their lm_head x ROBUST_CORRUPT: a layernormed
+    decoder scales its embedding away), batch 4, prompt 128 after 1500
+    frames, each replica with its own cross K/V: each prefilled, the last
+    logits fused, then ROBUST_NEW - 1 robust decode steps, greedy.  K1 and
+    K2 once per token (K2 on the theta = 5 kernel), nothing else;
+    byzantine mass 0 at every token; the fused logits the honest model's
+    bit for bit and the tokens ``generate``'s with the same frames.
+    Returns the counts and the ensemble's ms a token."""
+    from repro_torch import models as MD
+    from repro_torch.configs import RobustConfig
+    from repro_torch.dist.serving import (aggregate_replica_logits, generate,
+                                          make_robust_serve_step)
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_map
+    label = "whisper robust serving"
+    cfg = MD.arch_config("whisper-tiny")
+    honest = MD.init_model(cfg, seed=5, device="cuda")
+    stack = tree_map(lambda t: torch.stack([t] * N), honest)
+    for i, factor in enumerate(ROBUST_CORRUPT):
+        stack["lm_head"]["w"][i] *= factor
+    rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan",
+                        use_kernels=True)
+    backend = recording_backend(rcfg)
+    prompt = serve_prompt(torch, SERVE_BATCH, SERVE_PROMPT,
+                          seed=11) % cfg.vocab_size
+    extra = {"frames": MD.frames(cfg, SERVE_BATCH, 17, "cuda")}
+    batch = {"tokens": prompt, **extra}
+    cache_len = SERVE_PROMPT + ROBUST_NEW
+    step = make_robust_serve_step(cfg, rcfg, backend=backend)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        outs = [MD.prefill_fn(tree_map(lambda t: t[i], stack), cfg, batch,
+                              chunk_q=SERVE_PROMPT, cache_len=cache_len)
+                for i in range(N)]
+        first = torch.stack([lg for lg, _ in outs])
+        caches = tree_map(lambda *xs: torch.stack(xs), *[c for _, c in outs])
+        del outs
+        fused = [aggregate_replica_logits(first, rcfg, backend)]
+        tokens, step_s = [], []
+        for t in range(ROBUST_NEW):
+            tokens.append(torch.argmax(fused[-1], dim=-1).int())
+            if t + 1 < ROBUST_NEW:
+                dt, (lg, caches) = wall_s(torch, lambda: step(
+                    stack, caches, tokens[-1], SERVE_PROMPT + t))
+                fused.append(lg)
+                step_s.append(dt)
+    counts = ops.launch_counts()
+    want = {**NO_KERNELS, "pairwise_stats": ROBUST_NEW,
+            "fused_select": ROBUST_NEW}
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    variants = k2_variant_check(label, ROBUST_NEW)
+    byz = [float(p.diagnostics()["byz_mass"]) for p in backend.plans]
+    check(len(byz) == ROBUST_NEW and all(b == 0.0 for b in byz),
+          f"{label}: byzantine mass {byz}")
+    del caches, first
+    with torch.no_grad():
+        want_l, hcache = MD.prefill_fn(honest, cfg, batch,
+                                       chunk_q=SERVE_PROMPT,
+                                       cache_len=cache_len)
+        for t in range(ROBUST_NEW):
+            check(fused[t].dtype == want_l.dtype and
+                  torch.equal(fused[t], want_l),
+                  f"{label} token {t}: fused logits differ from the honest "
+                  f"model's (max diff "
+                  f"{float((fused[t].float() - want_l.float()).abs().max())})")
+            if t + 1 < ROBUST_NEW:
+                want_l, hcache = MD.decode_fn(honest, cfg, tokens[t], hcache,
+                                              SERVE_PROMPT + t)
+    ref_tokens = generate(honest, cfg, prompt, ROBUST_NEW,
+                          chunk_q=SERVE_PROMPT, extra_batch=extra)
+    check(torch.equal(torch.stack(tokens, dim=1), ref_tokens),
+          f"{label}: ensemble tokens differ from generate's")
+    token_ms = 1e3 * statistics.mean(step_s)
+    log(f"{label} ({N} replicas of whisper-tiny, full depth, f = {F}, "
+        f"multi_bulyan, replicas 0, 1 lm_head x {ROBUST_CORRUPT}, batch "
+        f"{SERVE_BATCH}, prompt {SERVE_PROMPT} after {cfg.n_frames} frames, "
+        f"{ROBUST_NEW} tokens): launches {counts}, K2 variants {variants}; "
+        f"byzantine mass 0 at every token; fused logits bit for bit the "
+        f"honest model's at every token; tokens generate's; the ensemble's "
+        f"decode step {token_ms:.4f} ms a token (mean of {len(step_s)}); "
+        f"card {power}")
+    del stack, fused, hcache, honest
+    torch.cuda.empty_cache()
+    return counts, token_ms
+
+
+def encdec_serving(torch, power):
+    """``launch/serve.py --arch whisper-tiny`` at full depth, batch 4,
+    prompt 128 after 1500 frames, 32 tokens (:func:`serve_and_time`): no
+    kernel, the prefill logits the forward's last row bit for bit; decode
+    against the forward, prefill and 2 steps within one bf16 ulp of the
+    largest logit (window 0 and 64); the robust ensemble
+    (:func:`encdec_robust_serving`).  Returns ({phase: counts},
+    {phase: numbers})."""
+    from repro_torch import models as MD
+    counts, numbers = {}, {}
+    cfg = MD.arch_config("whisper-tiny")
+    counts["whisper_serving"], numbers["whisper_serving"], logits, full = \
+        serve_and_time(torch, power, "whisper serving (full depth)",
+                       WHISPER_SERVE_ARGS, cfg)
+    check(torch.equal(logits, full), "whisper serving: prefill logits "
+          "differ from the forward's last row")
+    log("whisper serving: prefill logits the forward's last row bit for bit")
+    del logits, full
+    params = MD.init_model(cfg, seed=5, device="cuda")
+    extra = {"frames": MD.frames(cfg, SERVE_BATCH, 17, "cuda")}
+    worst = {}
+    for window in (0, 64):
+        label = f"decode consistency (whisper-tiny, window {window})"
+        err, ulp = decode_against_forward(torch, label, cfg, params, window,
+                                          extra=extra)
+        worst[label] = (err, ulp)
+        log(f"{label}: prefill and {CONSISTENCY_STEPS} decode steps against "
+            f"the forward, largest difference {err:.6g}, each within one "
+            f"bf16 ulp of its largest logit (at most {ulp:.6g}); card "
+            f"{power}")
+    numbers["whisper_decode_consistency"] = worst
+    del params
+    torch.cuda.empty_cache()
+    counts["whisper_robust_serving"], numbers["whisper_robust_token_ms"] = \
+        encdec_robust_serving(torch, power)
+    return counts, numbers
+
 
 
 def network_exchanges(slots):
@@ -2728,16 +3147,40 @@ def network_exchanges(slots):
 
 
 def select_phase_ops(theta, beta):
-    """fp32 operations of one coordinate's phase as select_tile.cuh runs it
-    for K2 and K3: the median's network on the kernel's slots (theta, or 32
-    above 16), two operations an exchange, and the midpoint for an even
-    theta; theta differences and abs values; the threshold (theta - 1 mins
-    for beta = 1, the network again otherwise); a compare below and a
-    compare at it a slot, beta adds and the division."""
-    net = 2 * network_exchanges(theta if theta <= 16 else 32)
+    """fp32 operations of one coordinate's phase, the least the function
+    needs as select_tile.cuh runs it for K2 and K3: the median's network
+    on the kernel's slots (theta, or 32 above 16), two operations an
+    exchange, and the midpoint for an even theta; theta differences and
+    abs values; the threshold (theta - 1 mins for beta = 1, the network
+    again otherwise); a compare below and a compare at it a slot, beta
+    adds and the division.  Above theta = 32 the same selection on a
+    network at the next power of two: select_count.cuh's counted variants
+    rank every pair instead (about 8 theta^2 operations, 9349 at theta =
+    34), their algorithm's cost and not the function's."""
+    slots = theta if theta <= 16 else 32 if theta <= 32 \
+        else 1 << (theta - 1).bit_length()
+    net = 2 * network_exchanges(slots)
     threshold = theta - 1 if beta == 1 else net
     return net + (0 if theta & 1 else 2) + 2 * theta + threshold \
         + 2 * theta + beta + 1
+
+
+def k2_bound_s(n, m, theta, beta):
+    """K2's least seconds on an (n, m) stack, by bytes and by operations:
+    the stack read once, the (m,) result written once, the two (theta, n)
+    weights read once; the two contractions (a multiply and an add each a
+    weight) and the coordinate phase (:func:`select_phase_ops`)."""
+    return {"bytes": 4 * (n * m + m + 2 * theta * n) / HBM_BYTES_PER_S,
+            "operations": (4 * theta * n + select_phase_ops(theta, beta))
+            * m / FP32_FLOP_PER_S}
+
+
+def k3_bound_s(m, theta, beta):
+    """K3's least seconds on (theta, m) g_ext and g_agr: both read once,
+    the (m,) result written once; the coordinate phase's operations."""
+    return {"bytes": 4 * (2 * theta * m + m) / HBM_BYTES_PER_S,
+            "operations": select_phase_ops(theta, beta) * m
+            / FP32_FLOP_PER_S}
 
 
 def time_ms(torch, fn, reps):
@@ -2789,15 +3232,12 @@ def timing(torch, shapes, worst_k5):
         tot["k2_plain"] += time_ms(torch, lambda: ref.fused_select_ref(
             x, plan.w_ext, plan.w_agr, plan.beta), min(reps, 3))
         # each input read once, each output written once; fp32 operations
-        # outside the tensor cores (the gram's upper triangle for K1; for
-        # K2 the two (theta, n) contractions, a multiply and an add each,
-        # and the coordinate phase, select_phase_ops)
+        # outside the tensor cores (the gram's upper triangle for K1; K2's
+        # as k2_bound_s counts them)
         bound["k1"]["bytes"] += 4 * (N * m + N * N + N) / HBM_BYTES_PER_S
         bound["k1"]["operations"] += N * (N + 1) * m / FP32_FLOP_PER_S
-        bound["k2"]["bytes"] += 4 * (N * m + m + 2 * theta * N) \
-            / HBM_BYTES_PER_S
-        bound["k2"]["operations"] += (4 * theta * N + select_phase_ops(
-            theta, beta)) * m / FP32_FLOP_PER_S
+        for key, v in k2_bound_s(N, m, theta, beta).items():
+            bound["k2"][key] += v
         # the two-step apply at theta = 5: the two products, K3 on what
         # they formed (checked against its plain version), and the whole
         # substrate as _bulyan_leaf runs it
@@ -2814,13 +3254,11 @@ def timing(torch, shapes, worst_k5):
             torch, lambda: (torch.matmul(we, x), torch.matmul(wa, x)), reps)
         tot["two_step"] += time_ms(torch, lambda: api._bulyan_leaf(
             we, wa, beta, x, use_kernels=True, fused=False), reps)
-        # K3: 2 theta values read and one written a coordinate; fp32
-        # operations: the coordinate phase.  The products: the stack and a
+        # K3 as k3_bound_s counts it.  The products: the stack and a
         # weight matrix read, theta rows written, 2 theta n flops a
         # coordinate, each of the two.
-        bound["k3"]["bytes"] += 4 * (2 * theta * m + m) / HBM_BYTES_PER_S
-        bound["k3"]["operations"] += select_phase_ops(theta, beta) * m \
-            / FP32_FLOP_PER_S
+        for key, v in k3_bound_s(m, theta, beta).items():
+            bound["k3"][key] += v
         bound["matmuls"]["bytes"] += 2 * 4 * (N * m + theta * N
                                               + theta * m) / HBM_BYTES_PER_S
         bound["matmuls"]["operations"] += 2 * 2 * theta * N * m \
@@ -3115,6 +3553,9 @@ def main():
         del params, wire_params
         real_wire_k5(torch, worst_k5)
         worst_k3 = k3_vs_plain(torch)
+        t0 = time.perf_counter()
+        wide_theta_sweep(torch)
+        log(f"theta > 32 sweep: {time.perf_counter() - t0:.1f}s")
         counts_k3, held, n_diff = two_step_substrate(torch)
         transform_training(torch)
         counts_phase = {"training": counts, **adaptive_training(torch)}
@@ -3145,6 +3586,14 @@ def main():
         moe_tot = moe_leaves(torch)
         log(f"qwen3-moe leaves: {time.perf_counter() - t0:.1f}s")
         counts_phase.update(counts_fam)
+        t0 = time.perf_counter()
+        counts_ed, ed_train, wide = encdec_training(torch, power)
+        log(f"encoder-decoder, training: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        counts_serve, ed_serve = encdec_serving(torch, power)
+        counts_ed.update(counts_serve)
+        log(f"encoder-decoder, serving: {time.perf_counter() - t0:.1f}s")
+        counts_phase.update(counts_ed)
         tot = timing(torch, shapes, worst_k5)
         tot_mesh = mesh_timing(torch, shapes)
         log(f"K5 worst relative error over every check: "
@@ -3222,7 +3671,14 @@ def main():
          "serving_bound_ms": robust_out["k2_bound_ms"],
          "moe_leaves": {leaf: {k[3:]: v for k, v in r.items()
                                if k.startswith("k2_")}
-                        for leaf, r in moe_tot.items()}},
+                        for leaf, r in moe_tot.items()},
+         # the launches of each variant: the main path's theta = 5 kernel,
+         # and the counted one (theta > 32) of whisper at n = 40
+         "variant_launches": {"theta=5": counts["fused_select"],
+                              "theta>32": counts_ed["whisper_wide"][
+                                  "fused_select"]},
+         "theta>32": wide_entry(wide, "k2", counts_ed["whisper_wide"][
+             "fused_select"])},
         {"name": "dequant_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/dequant_stats.cu",
          "replaces": "src/repro/kernels/dequant_stats.py:90",
@@ -3245,7 +3701,12 @@ def main():
          "max_abs_err": worst_k3,
          "ms": tot["k3"], "plain_ms": tot["k3_plain"],
          "bound_ms": tot["k3_bound"], "bound_by": tot["k3_bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "variant_launches": {"theta=5": counts_k3["coord_select"],
+                              "theta>32": counts_ed["whisper_two_step"][
+                                  "coord_select"]},
+         "theta>32": wide_entry(wide, "k3", counts_ed["whisper_two_step"][
+             "coord_select"])},
         # K6 and K7 have two grids, one entry each: on the one-rank NCCL
         # mesh the block is the stack, and they run the square kernel's
         # symmetric grid (stats_tile.cuh) from their own sources; a block
@@ -3329,6 +3790,9 @@ def main():
     log(f"decoder families: training {json.dumps(fam_train)}; serving "
         f"{json.dumps({k: v for k, v in fam_serve.items() if k != 'decode_consistency'})}; "
         f"decode consistency {fam_serve['decode_consistency']}; card {power}")
+    log(f"encoder-decoder (whisper-tiny): training {json.dumps(ed_train)}; "
+        f"serving {json.dumps(ed_serve)}; the counted variants at n = "
+        f"{WIDE_N} {json.dumps(wide)}; card {power}")
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
         f"{wire_s}; whole run {time.perf_counter() - t_main:.1f}s (the "
         f"kernels' build included)")

@@ -1,5 +1,5 @@
-"""Config registry of the port: the nine decoder-only architectures of the
-JAX package (its encoder-decoder ``whisper-tiny`` is not ported)."""
+"""Config registry of the port: the ten architectures of the JAX package
+(nine decoder-only and the encoder-decoder ``whisper-tiny``)."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +18,7 @@ _MODULES: Dict[str, str] = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",

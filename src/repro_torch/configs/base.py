@@ -54,13 +54,12 @@ class HybridConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """An architecture, field for field as in the JAX package, less the
-    encoder fields (``n_encoder_layers``, ``n_frames``: the audio family
-    is not ported) and the mesh-only ``sharding_strategy``,
-    ``long_context_window`` and ``attn_window``."""
+    mesh-only ``sharding_strategy``, ``long_context_window`` and
+    ``attn_window``."""
 
     # identification
     name: str
-    family: str                        # dense | moe | ssm | hybrid | vlm
+    family: str                        # dense | moe | ssm | hybrid | vlm | audio
     source: str = ""                   # citation for the config values
 
     # transformer backbone
@@ -85,6 +84,10 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+
+    # encoder (audio enc-dec): shares d_model / n_heads with the decoder
+    n_encoder_layers: int = 0
+    n_frames: int = 0                  # stub audio frontend: frames fed to encoder
     n_patches: int = 0                 # stub vision frontend: patches prefixed to LM
 
     # the activation type; the JAX package casts activations to bf16 at
@@ -95,6 +98,10 @@ class ArchConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim > 0 else self.d_model // self.n_heads
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
 
     @property
     def is_attention_free(self) -> bool:
@@ -119,6 +126,11 @@ class ArchConfig:
             n_norms = 1 + (1 if self._mlp_params(i) else 0)
             total += self._mixer_params(i) + self._mlp_params(i) + n_norms * ns
         total += ns                           # final norm
+        if self.is_encdec:
+            for _ in range(self.n_encoder_layers):
+                total += self._attn_params() + self._dense_mlp_params() + 2 * ns
+            total += ns                       # encoder output norm
+            total += self.n_layers * (self._attn_params() + ns)  # cross + norm_x
         return total
 
     def active_param_count(self) -> int:
@@ -208,6 +220,9 @@ class ArchConfig:
             # one block period of 2: attn at index 1, mamba at 0
             kw["hybrid"] = HybridConfig(period=2, attn_index=1)
             kw["n_layers"] = 2
+        if self.is_encdec:
+            kw["n_encoder_layers"] = 2
+            kw["n_frames"] = 16
         if self.n_patches:
             kw["n_patches"] = 8
         return dataclasses.replace(self, **kw)

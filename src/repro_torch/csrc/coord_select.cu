@@ -23,10 +23,17 @@
 //     contraction: same median, same selection, same row-order sum, same
 //     rounding, so the plain PyTorch version in kernels/ref.py reproduces
 //     it bit for bit;
+//   * theta > 32 (the counted variant, any theta): one thread per
+//     coordinate as above, but no register slots: the coordinate phase by
+//     counting (select_count.cuh, shared with K2's variant) ranks straight
+//     from the coordinate's (theta, d) columns, kCands candidates at a
+//     time against all theta values read through the read-only cache
+//     (the block's columns stay hot in L1 between the passes);
 //   * 64-bit offsets: theta * d exceeds 2^31 on an embedding leaf.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "select_count.cuh"
 #include "select_tile.cuh"
 
 namespace {
@@ -69,16 +76,33 @@ LaunchFn exact_launch(int theta, std::integer_sequence<int, T...>) {
   return fn;
 }
 
+// theta > 32: the coordinate phase by counting on the inputs' columns
+__global__ void __launch_bounds__(kThreads)
+coord_select_count_kernel(const float* __restrict__ g_ext,
+                          const float* __restrict__ g_agr,
+                          float* __restrict__ out, int64_t d, int theta,
+                          int beta) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d; j += stride) {
+    out[j] = select_count::select_coordinate(
+        select_count::Column<true>{g_ext + j, d},
+        select_count::Column<true>{g_agr + j, d}, theta, beta);
+  }
+}
+
 }  // namespace
 
 // g_ext, g_agr: (theta, d) fp32 row-major; out: (d,) fp32.
-// blocks: grid size (the wrapper's choice); 1 <= beta <= theta <= 32.
+// blocks: grid size (the wrapper's choice); 1 <= beta <= theta.  *variant
+// is set to the kernel taken: theta for the exact kernels (theta <= 16),
+// 32 for the runtime-theta one, theta for the counted one (theta > 32).
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int coord_select_launch(const void* g_ext, const void* g_agr, void* out,
                                    int64_t d, int64_t theta, int64_t beta,
-                                   int64_t blocks, void* stream) {
-  if (d <= 0 || theta < 1 || theta > 32 || beta < 1 || beta > theta || blocks <= 0 ||
-      blocks > 0x7fffffff) {
+                                   int64_t blocks, void* stream, int32_t* variant) {
+  *variant = 0;
+  if (d <= 0 || theta < 1 || theta > 0x7fffffff || beta < 1 || beta > theta ||
+      blocks <= 0 || blocks > 0x7fffffff) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
@@ -86,6 +110,13 @@ extern "C" int coord_select_launch(const void* g_ext, const void* g_agr, void* o
   const float* ga = (const float*)g_agr;
   float* op = (float*)out;
   const int th = (int)theta, be = (int)beta;
+  if (theta > 32) {
+    *variant = th;
+    coord_select_count_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(ge, ga, op, d, th,
+                                                                    be);
+    return (int)cudaGetLastError();
+  }
+  *variant = theta <= 16 ? th : 32;
   const LaunchFn fn = theta <= 16
       ? exact_launch(th, std::make_integer_sequence<int, 16>{}) : &launch<32>;
   fn(ge, ga, op, d, th, be, (unsigned)blocks, s);

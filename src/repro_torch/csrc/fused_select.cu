@@ -34,10 +34,28 @@
 //   * 17 <= theta <= 32 keeps one coordinate a thread over 32 register
 //     slots guarded by the runtime theta (the same phase on NaN-padded
 //     slots);
+//   * theta > 32 (the counted variant, any theta): one coordinate a
+//     thread, kCountThreads a block.  Its theta extracted and theta
+//     aggregated values cannot sit in registers, and 8 theta bytes a
+//     coordinate in shared memory would cap theta at what one block's
+//     threads can hold, so they go to a global scratch the wrapper
+//     allocates for the launch (fused_select_scratch_floats says its
+//     size), one column per thread of the grid, the grid sized so that
+//     the scratch stays within the 50 MB L2.  The
+//     contractions run kCands slots at a time, accumulators in registers,
+//     while the coordinate's rows stream past (the stack read theta /
+//     kCands times; the block's rows are hot in L1 / L2 after the first
+//     pass), the slots' (w_ext, w_agr) pairs staged in shared memory
+//     kCountRows rows at a time: so the weights, theta n 8 bytes (260 KB
+//     at n = 256, theta = 128), never need to fit in shared memory.  The
+//     products and sums keep the row order and their rounding, as above;
+//     then the coordinate phase by counting (select_count.cuh, shared
+//     with K3's variant) reads the column back;
 //   * 64-bit offsets: an embedding leaf stack holds > 2^31 values.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "select_count.cuh"
 #include "select_tile.cuh"
 
 namespace {
@@ -193,22 +211,126 @@ LaunchFn exact_launch(int theta, std::integer_sequence<int, T...>) {
   return fn;
 }
 
+// theta > 32: one coordinate a thread, its theta ext and theta agr values
+// in the scratch column of the thread (slot t at t * lanes), then the
+// coordinate phase by counting.
+constexpr int kCountThreads = 128;
+constexpr int kCands = select_count::kCands;
+// rows whose weight pairs are staged in shared memory at a time
+constexpr int kCountRows = 32;
+
+__global__ void __launch_bounds__(kCountThreads)
+fused_select_count_kernel(const float* __restrict__ x,
+                          const float* __restrict__ w_ext,
+                          const float* __restrict__ w_agr,
+                          float* __restrict__ out, float* scratch, int n,
+                          int64_t d, int theta, int beta) {
+  __shared__ float2 sw[kCountRows][kCands];
+  const int64_t lanes = (int64_t)gridDim.x * blockDim.x;
+  float* ext = scratch + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  float* agr = ext + (int64_t)theta * lanes;
+  // every loop bound is the block's, so each thread reaches each
+  // __syncthreads (a thread past d loads and stores nothing)
+  for (int64_t j0 = (int64_t)blockIdx.x * blockDim.x; j0 < d; j0 += lanes) {
+    const int64_t j = j0 + threadIdx.x;
+    const bool in = j < d;
+    for (int t0 = 0; t0 < theta; t0 += kCands) {
+      float e[kCands], a[kCands];
+#pragma unroll
+      for (int u = 0; u < kCands; ++u) {
+        e[u] = 0.0f;
+        a[u] = 0.0f;
+      }
+      for (int i0 = 0; i0 < n; i0 += kCountRows) {
+        __syncthreads();
+        for (int k = threadIdx.x; k < kCountRows * kCands; k += blockDim.x) {
+          const int u = k / kCountRows, r = k % kCountRows;
+          const int i = i0 + r, t = t0 + u;
+          const bool ok = i < n && t < theta;
+          sw[r][u] = make_float2(ok ? w_ext[(int64_t)t * n + i] : 0.0f,
+                                 ok ? w_agr[(int64_t)t * n + i] : 0.0f);
+        }
+        __syncthreads();
+        const int rows = n - i0 < kCountRows ? n - i0 : kCountRows;
+        const float* row = x + (int64_t)i0 * d + j;
+        for (int r = 0; r < rows; ++r, row += d) {
+          const float v = in ? __ldg(row) : 0.0f;
+#pragma unroll
+          for (int u = 0; u < kCands; ++u) {
+            const float2 w = sw[r][u];
+            e[u] = __fadd_rn(e[u], __fmul_rn(w.x, v));
+            a[u] = __fadd_rn(a[u], __fmul_rn(w.y, v));
+          }
+        }
+      }
+      if (in) {
+#pragma unroll
+        for (int u = 0; u < kCands; ++u) {
+          if (t0 + u < theta) {
+            ext[(int64_t)(t0 + u) * lanes] = e[u];
+            agr[(int64_t)(t0 + u) * lanes] = a[u];
+          }
+        }
+      }
+    }
+    if (in) {
+      out[j] = select_count::select_coordinate(
+          select_count::Column<false>{ext, lanes},
+          select_count::Column<false>{agr, lanes}, theta, beta);
+    }
+  }
+}
+
+// the counted variant's scratch is kept near this size, within the
+// H100's 50 MB L2, by capping its grid; one block an SM (132) at least
+constexpr int64_t kCountScratchBytes = 32 << 20;
+
+// the counted variant's grid: a block a kCountThreads columns of d,
+// capped so that its scratch (2 theta floats a thread) stays near
+// kCountScratchBytes
+int64_t count_blocks(int64_t d, int64_t theta) {
+  const int64_t want = (d + kCountThreads - 1) / kCountThreads;
+  int64_t cap = kCountScratchBytes / (8 * theta * kCountThreads);
+  cap = cap > 132 ? cap : 132;
+  return want < cap ? want : cap;
+}
+
 }  // namespace
 
+// The floats of scratch the counted variant (theta > 32) needs for a
+// (., d) stack: 2 theta a thread of its grid.  0 for theta <= 32, which
+// takes none; -1 for d or theta out of range.
+extern "C" int64_t fused_select_scratch_floats(int64_t d, int64_t theta) {
+  if (d <= 0 || theta < 1 || theta > 0x7fffffff) return -1;
+  if (theta <= 32) return 0;
+  return 2 * theta * count_blocks(d, theta) * kCountThreads;
+}
+
 // x: (n, d) fp32 row-major; w_ext, w_agr: (theta, n) fp32; out: (d,) fp32.
-// max_blocks caps the grid (a grid-stride loop covers the rest);
-// 1 <= beta <= theta <= 32.  *variant is set to the kernel taken: theta
-// for the exact kernels (theta <= 16), 32 for the runtime-theta one.
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// max_blocks caps the grid of the theta <= 32 kernels (a grid-stride loop
+// covers the rest); 1 <= beta <= theta.  theta > 32 takes the counted
+// variant, whose grid is count_blocks(d, theta) and whose scratch, of
+// scratch_floats floats, the caller allocates: it must hold
+// fused_select_scratch_floats(d, theta) (null and 0 for theta <= 32).
+// *variant is set to the kernel taken: theta for the exact kernels
+// (theta <= 16), 32 for the runtime-theta one, theta for the counted one
+// (theta > 32).  Launches on `stream`; returns cudaGetLastError() (0 on
+// success), cudaErrorInvalidValue for an argument out of range or a
+// scratch too small.
 extern "C" int fused_select_launch(const void* x, const void* w_ext,
-                                   const void* w_agr, void* out, int64_t n,
-                                   int64_t d, int64_t theta, int64_t beta,
-                                   int64_t max_blocks, void* stream,
-                                   int32_t* variant) {
+                                   const void* w_agr, void* out,
+                                   void* scratch, int64_t scratch_floats,
+                                   int64_t n, int64_t d, int64_t theta,
+                                   int64_t beta, int64_t max_blocks,
+                                   void* stream, int32_t* variant) {
   *variant = 0;
-  if (n <= 0 || n > 0x7fffffff || d <= 0 || theta < 1 || theta > 32 ||
-      beta < 1 || beta > theta || max_blocks <= 0 || max_blocks > 0x7fffffff ||
-      (size_t)theta * n * sizeof(float2) > 48 * 1024) {
+  if (n <= 0 || n > 0x7fffffff || d <= 0 || theta < 1 ||
+      theta > 0x7fffffff || beta < 1 || beta > theta || max_blocks <= 0 ||
+      max_blocks > 0x7fffffff ||
+      (theta <= 32 && (size_t)theta * n * sizeof(float2) > 48 * 1024) ||
+      (theta > 32 &&
+       (scratch == nullptr ||
+        scratch_floats < fused_select_scratch_floats(d, theta)))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
@@ -222,7 +344,14 @@ extern "C" int fused_select_launch(const void* x, const void* w_ext,
     return exact_launch(th, std::make_integer_sequence<int, 16>{})(
         xp, we, wa, op, nn, d, th, be, max_blocks, s);
   }
-  *variant = 32;
-  return launch<32, coords_per_thread<32>()>(xp, we, wa, op, nn, d, th, be,
-                                             max_blocks, s);
+  if (theta <= 32) {
+    *variant = 32;
+    return launch<32, coords_per_thread<32>()>(xp, we, wa, op, nn, d, th, be,
+                                               max_blocks, s);
+  }
+  *variant = th;
+  const unsigned blocks = (unsigned)count_blocks(d, theta);
+  fused_select_count_kernel<<<blocks, kCountThreads, 0, s>>>(
+      xp, we, wa, op, (float*)scratch, nn, d, th, be);
+  return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ replicas decode in lockstep and their per-token logits are fused by the
 configured GAR through the same :class:`~repro_torch.core.api.
 AggregatorBackend` the trainers use.  Under ``RobustConfig.use_kernels``
 the statistics are one K1 launch and the multi-Bulyan apply one K2 launch
-on the (n, B·V) logit stack per token.
+on the (n, B·V) logit stack per token.  An encoder-decoder's replicas each
+carry their own cross K/V in their caches.
 """
 from __future__ import annotations
 
@@ -125,20 +126,16 @@ def generate(params: Tree, cfg: ArchConfig, prompt: Tensor, new_tokens: int,
     """Prefill ``prompt`` (B, S) and decode ``new_tokens`` continuations on
     the prompt's device.  Returns (B, new_tokens) int32.  ``window > 0``
     serves from the sliding-window ring cache; otherwise the cache holds
-    prefix + prompt + new_tokens exactly.  ``extra_batch`` carries a VLM's
-    ``prefix_embeds`` (B, n_patches, d_model), which take the cache slots
-    before the prompt, so the decode positions start after them; the
-    audio ``frames`` come with the encoder-decoder family."""
+    prefix + prompt + new_tokens exactly.  ``extra_batch`` carries the
+    family's inputs: a VLM's ``prefix_embeds`` (B, n_patches, d_model),
+    which take the cache slots before the prompt, so the decode positions
+    start after them, or an encoder-decoder's audio ``frames``
+    (B, n_frames, d_model), whose encoder memory takes no cache slots."""
     batch: Dict[str, Tensor] = {"tokens": prompt}
     if extra_batch:
-        other = sorted(set(extra_batch) - {"prefix_embeds"})
-        if other:
-            raise NotImplementedError(
-                f"extra_batch {other}: the audio encoder-decoder family is "
-                f"not ported")
         batch.update(extra_batch)
     n_prefix = 0
-    if batch.get("prefix_embeds") is not None:
+    if not cfg.is_encdec and batch.get("prefix_embeds") is not None:
         n_prefix = batch["prefix_embeds"].shape[1]
     prompt_total = prompt.shape[1] + n_prefix
     logits, cache = MD.prefill_fn(params, cfg, batch, window=window,

@@ -6,9 +6,12 @@ fp32 ``g_ext``/``g_agr`` + β -> (d,) fp32, the θ-median of ``g_ext`` and
 the mean of the β ``g_agr`` values nearest it per coordinate.  It runs the
 coordinate phase of K2 (``csrc/select_tile.cuh``) after loading the two
 inputs, so the fused and the two-step substrates differ only in how the
-inputs were formed.  The kernel's header says what bounds it; its plain
-version is ``kernels/ref.py::coord_select_ref``, which it matches bit for
-bit.
+inputs were formed.  A θ above ``MAX_THETA`` takes the counted variant,
+which ranks straight from the inputs' columns, so every θ runs;
+``coord_select_cuda.variant_launches`` counts the launches of each
+variant under K2's names (``fused_select.variant_name``).  The kernel's
+header says what bounds it; its plain version is
+``kernels/ref.py::coord_select_ref``, which it matches bit for bit.
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fused_select import variant_name
 
-#: largest θ the kernel's unrolled register slots hold
+#: largest θ the kernel's unrolled register slots hold (above it, the
+#: counted variant)
 MAX_THETA = 32
 #: grid cap (132 SMs x 16 on an H100); a grid-stride loop covers the rest
 MAX_BLOCKS = 2112
@@ -30,7 +35,7 @@ _THREADS = 256
 def _launch_fn():
     fn = build.library("coord_select").coord_select_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 \
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
     fn.restype = ctypes.c_int
     return fn
 
@@ -54,8 +59,8 @@ def check_coord_args(g_ext: torch.Tensor, g_agr: torch.Tensor,
 def coord_select_cuda(g_ext: torch.Tensor, g_agr: torch.Tensor,
                       beta: int) -> torch.Tensor:
     """Launch K3 on contiguous fp32 CUDA tensors; returns the (d,) fp32
-    result, computed on the current stream.  Raises on any input the
-    kernel does not take (θ > ``MAX_THETA`` included)."""
+    result, computed on the current stream.  Takes every θ; raises on any
+    input the kernel does not take."""
     check_coord_args(g_ext, g_agr, beta)
     for name, t in (("g_ext", g_ext), ("g_agr", g_agr)):
         if t.device.type != "cuda" or t.device != g_ext.device:
@@ -65,24 +70,26 @@ def coord_select_cuda(g_ext: torch.Tensor, g_agr: torch.Tensor,
             raise ValueError(f"coord_select_cuda needs contiguous float32 "
                              f"{name}, got {t.dtype}")
     theta, d = g_ext.shape
-    if theta > MAX_THETA:
-        raise ValueError(f"coord_select_cuda holds theta <= {MAX_THETA} "
-                         f"values in registers, got theta={theta}")
     if d == 0:
         raise ValueError("empty inputs")
     blocks = min(-(-d // _THREADS), MAX_BLOCKS)
     out = torch.empty((d,), dtype=torch.float32, device=g_ext.device)
     fn = _launch_fn()
+    variant = ctypes.c_int32(0)
     with torch.cuda.device(g_ext.device):
         stream = torch.cuda.current_stream(g_ext.device).cuda_stream
         err = fn(g_ext.data_ptr(), g_agr.data_ptr(), out.data_ptr(), d,
-                 theta, int(beta), blocks, stream)
+                 theta, int(beta), blocks, stream, ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"coord_select kernel launch failed "
                            f"(cudaError {err}) for inputs "
                            f"{tuple(g_ext.shape)}, beta={beta}")
+    name = variant_name(variant.value)
     coord_select_cuda.launches += 1
+    counts = coord_select_cuda.variant_launches
+    counts[name] = counts.get(name, 0) + 1
     return out
 
 
 coord_select_cuda.launches = 0
+coord_select_cuda.variant_launches = {}

@@ -6,10 +6,14 @@ with no (θ, d) intermediate in device memory.  The kernel's header says
 what bounds it and how its design meets that; its plain version is
 ``kernels/ref.py::fused_select_ref``, which it matches bit for bit.
 
-A θ ≤ ``MAX_EXACT_THETA`` takes a kernel compiled for that θ, a larger one
-the kernel over ``MAX_THETA`` slots guarded by the runtime θ; a θ above
-``MAX_THETA`` raises.  ``fused_select_cuda.variant_launches`` counts the
-launches of each (``"theta=5"``, ``"theta<=32"``) beside ``launches``.
+A θ ≤ ``MAX_EXACT_THETA`` takes a kernel compiled for that θ, one up to
+``MAX_THETA`` the kernel over ``MAX_THETA`` slots guarded by the runtime
+θ, and every larger θ the counted variant, which ranks by counting and
+keeps its θ extracted and θ aggregated values in a scratch allocated for
+the launch, of the size that ``fused_select.cu`` gives
+(``fused_select_scratch_floats``; its launcher refuses a smaller one).
+``fused_select_cuda.variant_launches`` counts the launches of each
+(``"theta=5"``, ``"theta<=32"``, ``"theta>32"``) beside ``launches``.
 """
 from __future__ import annotations
 
@@ -24,24 +28,35 @@ from repro_torch.kernels import build
 MAX_THETA = 32
 #: largest θ with a kernel compiled for it
 MAX_EXACT_THETA = 16
-#: grid cap (132 SMs x 16 on an H100; 1056 times the same on the main
-#: path); a grid-stride loop covers the rest
+#: grid cap of the θ ≤ 32 kernels (132 SMs x 16 on an H100; 1056 times
+#: the same on the main path); a grid-stride loop covers the rest
 MAX_BLOCKS = 2112
 
 
 @functools.lru_cache(maxsize=None)
 def _launch_fn():
     fn = build.library("fused_select").fused_select_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6 \
         + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_fn():
+    fn = build.library("fused_select").fused_select_scratch_floats
+    fn.argtypes = [ctypes.c_int64] * 2
+    fn.restype = ctypes.c_int64
+    return fn
+
+
 def variant_name(theta: int) -> str:
-    """The kernel variant a θ takes (the name its launches count under)."""
-    return f"theta={theta}" if theta <= MAX_EXACT_THETA \
-        else f"theta<={MAX_THETA}"
+    """The kernel variant a θ takes (the name its launches count under):
+    the same for K2 and K3, which share their dispatch."""
+    if theta <= MAX_EXACT_THETA:
+        return f"theta={theta}"
+    return f"theta<={MAX_THETA}" if theta <= MAX_THETA \
+        else f"theta>{MAX_THETA}"
 
 
 def check_select_args(x: torch.Tensor, w_ext: torch.Tensor,
@@ -65,8 +80,8 @@ def check_select_args(x: torch.Tensor, w_ext: torch.Tensor,
 def fused_select_cuda(x: torch.Tensor, w_ext: torch.Tensor,
                       w_agr: torch.Tensor, beta: int) -> torch.Tensor:
     """Launch K2 on contiguous fp32 CUDA tensors; returns the (d,) fp32
-    aggregate, computed on the current stream.  Raises on any input the
-    kernel does not take (θ > ``MAX_THETA`` included)."""
+    aggregate, computed on the current stream.  Takes every θ; raises on
+    any input the kernel does not take."""
     check_select_args(x, w_ext, w_agr, beta)
     for name, t in (("x", x), ("w_ext", w_ext), ("w_agr", w_agr)):
         if t.device.type != "cuda" or t.device != x.device:
@@ -77,24 +92,26 @@ def fused_select_cuda(x: torch.Tensor, w_ext: torch.Tensor,
                              f"{name}, got {t.dtype}")
     n, d = x.shape
     theta = w_ext.shape[0]
-    if theta > MAX_THETA:
-        raise ValueError(f"fused_select_cuda holds theta <= {MAX_THETA} "
-                         f"values in registers, got theta={theta}")
     if d == 0:
         raise ValueError("empty stack")
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
+    floats = _scratch_fn()(d, theta)
+    scratch = torch.empty((floats,), dtype=torch.float32,
+                          device=x.device) if floats > 0 else None
     fn = _launch_fn()
     variant = ctypes.c_int32(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w_ext.data_ptr(), w_agr.data_ptr(),
-                 out.data_ptr(), n, d, theta, int(beta), MAX_BLOCKS, stream,
-                 ctypes.byref(variant))
+                 out.data_ptr(), None if scratch is None
+                 else scratch.data_ptr(), max(floats, 0), n, d, theta,
+                 int(beta), MAX_BLOCKS, stream, ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"fused_select kernel launch failed "
                            f"(cudaError {err}) for x {tuple(x.shape)}, "
                            f"theta={theta}, beta={beta}")
-    # the kernel the launcher took: its θ, or MAX_THETA for the guarded one
+    # the kernel the launcher took: its θ (exact or counted), or MAX_THETA
+    # for the guarded one
     name = variant_name(variant.value)
     fused_select_cuda.launches += 1
     counts = fused_select_cuda.variant_launches

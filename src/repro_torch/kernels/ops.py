@@ -142,8 +142,15 @@ def view_launch_counts() -> Dict[str, int]:
 
 def fused_select_variant_counts() -> Dict[str, int]:
     """Of the K2 launches in :func:`launch_counts`, those of each kernel
-    variant: ``"theta=<θ>"`` (compiled for that θ) or ``"theta<=32"``."""
+    variant: ``"theta=<θ>"`` (compiled for that θ), ``"theta<=32"`` (the
+    guarded slots) or ``"theta>32"`` (the counted variant)."""
     return dict(fused_select_cuda.variant_launches)
+
+
+def coord_select_variant_counts() -> Dict[str, int]:
+    """Of the K3 launches in :func:`launch_counts`, those of each kernel
+    variant, named as :func:`fused_select_variant_counts` names K2's."""
+    return dict(coord_select_cuda.variant_launches)
 
 
 def reset_launch_counts() -> None:
@@ -154,3 +161,4 @@ def reset_launch_counts() -> None:
         if hasattr(fn, "view_launches"):
             fn.view_launches = 0
     fused_select_cuda.variant_launches.clear()
+    coord_select_cuda.variant_launches.clear()

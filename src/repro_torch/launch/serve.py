@@ -6,7 +6,8 @@ nothing falls back).  The parameters are random, from ``--seed``;
 ``--layers`` cuts the depth and keeps the published widths (a multiple of
 the architecture's layer period), ``--reduced`` takes the smoke-scale
 variant.  A VLM config is served with a bf16 normal soft prefix of
-``n_patches`` embeddings per sequence, from ``--seed``.
+``n_patches`` embeddings per sequence, an encoder-decoder config with bf16
+normal audio frames (``n_frames`` per sequence), both from ``--seed``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
@@ -14,6 +15,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --batch 2 --prompt-len 16 --new-tokens 8 --sample categorical
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+      --batch 4 --prompt-len 128 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
       --batch 4 --prompt-len 128 --new-tokens 32
 """
 from __future__ import annotations
@@ -54,8 +57,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Serve as the flags say and print the three ``[serve]`` lines.
-    Returns ``params``, ``prompt``, ``extra`` (the VLM prefix batch or
-    None), ``tokens`` ((batch, new_tokens) int32) and ``seconds``
+    Returns ``params``, ``prompt``, ``extra`` (the VLM prefix or the
+    encoder-decoder frames batch, or None), ``tokens`` ((batch, new_tokens) int32) and ``seconds``
     (prefill and decode, up to the last token on the device)."""
     args = parse_args(argv)
     cfg = MD.arch_config(args.arch, reduced=args.reduced,
@@ -69,9 +72,13 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     gen.manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device, dtype=torch.int32)
-    extra = {"prefix_embeds": MD.prefix_embeds(
-        cfg, args.batch, fold_seed(args.seed, MD.PREFIX_STREAM), device)} \
-        if cfg.n_patches else None
+    extra = None
+    if cfg.n_patches:
+        extra = {"prefix_embeds": MD.prefix_embeds(
+            cfg, args.batch, fold_seed(args.seed, MD.PREFIX_STREAM), device)}
+    if cfg.is_encdec:
+        extra = {"frames": MD.frames(
+            cfg, args.batch, fold_seed(args.seed, MD.FRAMES_STREAM), device)}
     t0 = time.perf_counter()
     out = generate(params, cfg, prompt, args.new_tokens, window=args.window,
                    chunk_q=min(args.prompt_len, 512), sample=args.sample,

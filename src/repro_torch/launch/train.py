@@ -1,13 +1,15 @@
 """End-to-end training entry point of the port (cf. ``repro.launch.train``).
 
-Runs byzantine-robust training of any decoder-only architecture of the
-registry (dense, MoE, SSM, hybrid, VLM) on one device: ``cuda`` unless
-``--device cpu`` is passed (a missing GPU raises; nothing falls back).
-``--layers`` cuts the depth while keeping the published widths (a
+Runs byzantine-robust training of any architecture of the registry
+(dense, MoE, SSM, hybrid, VLM, encoder-decoder) on one device: ``cuda``
+unless ``--device cpu`` is passed (a missing GPU raises; nothing falls
+back).  ``--layers`` cuts the depth while keeping the published widths (a
 multiple of the architecture's layer period); ``--reduced`` takes the
 smoke-scale variant.  A VLM config gets a bf16 normal soft prefix of
-``n_patches`` embeddings per sequence, drawn anew each step from
-``--seed``.  ``--mesh host``
+``n_patches`` embeddings per sequence, an encoder-decoder config bf16
+normal audio frames (``n_frames`` per sequence), each drawn anew each
+step from ``--seed``; an encoder-decoder trains on the stacked trainer
+only, as in the JAX launcher.  ``--mesh host``
 runs the aggregation mesh-native on ``launch.mesh.make_host_mesh``: a
 world of one rank (an in-process store), or every rank of a
 ``torchrun`` launch (one process a card, ``env://``); only rank 0
@@ -30,6 +32,8 @@ Usage:
       --layers 8 --steps 2 --trainer stream_global
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --arch jamba-1.5-large-398b --steps 2 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --steps 3 --workers 11 --f 2 --attack inf
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen2-1.5b --layers 2 --steps 3 --mesh host
 """
@@ -133,11 +137,16 @@ def worker_batches(args: argparse.Namespace, cfg: ArchConfig,
                    device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
     """Step i's batch, split over the workers, for i = 0, 1, ...: the
     seeded token stream and, for a VLM, the soft prefix of
-    ``fold_seed(seed, PREFIX_STREAM + i)``."""
+    ``fold_seed(seed, PREFIX_STREAM + i)``, for an encoder-decoder the
+    frames of ``fold_seed(seed, FRAMES_STREAM + i)``."""
     data = lm_batches(cfg.vocab_size, args.workers * args.per_worker_batch,
                       args.seq, seed=args.seed)
     for i in itertools.count():
         batch = {k: v.to(device) for k, v in next(data).items()}
+        if cfg.is_encdec:
+            batch["frames"] = MD.frames(
+                cfg, batch["tokens"].shape[0],
+                fold_seed(args.seed, MD.FRAMES_STREAM + i), device)
         if cfg.n_patches:
             batch["prefix_embeds"] = MD.prefix_embeds(
                 cfg, batch["tokens"].shape[0],
@@ -162,6 +171,8 @@ def run(argv: Optional[Sequence[str]] = None
                          layers=args.layers)
     if args.per_worker_batch <= 0:
         raise SystemExit("--per-worker-batch must be positive")
+    if cfg.is_encdec and args.trainer != "stacked":
+        raise SystemExit("enc-dec supports only the stacked trainer")
     # validates (n, f, gar) before anything is built
     rcfg = robust_config(args)
     device = resolve_device(args.device)

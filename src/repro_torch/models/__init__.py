@@ -1,11 +1,13 @@
-"""Decoder-only models of the port: dense, MoE, SSM, hybrid and the VLM
-prefix (cf. ``repro.models``)."""
+"""Models of the port: the decoder-only families (dense, MoE, SSM, hybrid,
+VLM prefix) and the encoder-decoder (cf. ``repro.models``)."""
 from repro_torch.models.api import (  # noqa: F401
+    FRAMES_STREAM,
     PREFIX_STREAM,
     arch_config,
     cache_from_jax,
     decode_fn,
     forward_fn,
+    frames,
     init_cache_fn,
     init_model,
     loss_fn,

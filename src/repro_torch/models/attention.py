@@ -7,8 +7,12 @@
   ``p % window``), with an optional flash-style partial softmax over
   ``seq_chunks`` blocks of the cache.
 
-Caches are bf16 whatever the activation type, as in the JAX package.  The
-encoder-decoder cross attention comes with its model family.
+* :func:`cross_kv` / :func:`attend_cross` — the encoder-decoder's cross
+  attention: K/V of the encoder memory (computed once at prefill), then
+  non-causal attention of the decoder's queries over the whole memory.
+
+Self-attention caches are bf16 whatever the activation type, as in the
+JAX package; the cross K/V keep the activation type.
 """
 from __future__ import annotations
 
@@ -126,6 +130,26 @@ def attend_full(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         out = torch.matmul(probs, vt)                    # (B, H, cq, hd)
         outs.append(out.permute(0, 2, 1, 3).to(q.dtype))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+# ------------------------------------------------------------------ cross
+def attend_cross(p: dict, x: Tensor, memory_kv: Tuple[Tensor, Tensor],
+                 cfg: ArchConfig) -> Tensor:
+    """Cross attention of x (B, S, d) against precomputed encoder K/V
+    (B, Sm, Hkv, hd): every query sees the whole memory."""
+    b, s, _ = x.shape
+    q = _split_heads(M.linear_apply(p["q"], x), cfg.n_heads)
+    k, v = memory_kv
+    out = attend_full(q, k, v, causal=False, chunk_q=max(s, 1))
+    return M.linear_apply(p["o"], out.reshape(b, s, -1))
+
+
+def cross_kv(p: dict, memory: Tensor, cfg: ArchConfig
+             ) -> Tuple[Tensor, Tensor]:
+    """Cross-attention K/V (B, Sm, Hkv, hd) of the encoder output."""
+    k = _split_heads(M.linear_apply(p["k"], memory), cfg.n_kv_heads)
+    v = _split_heads(M.linear_apply(p["v"], memory), cfg.n_kv_heads)
+    return k, v
 
 
 # ---------------------------------------------------------- cached decode

@@ -70,6 +70,12 @@ def sinusoid(pos: Tensor, d: int) -> Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> Tensor:
+    """The (n, d) fp32 sinusoid table of positions 0 … n-1 (the whisper
+    encoder's and decoder's)."""
+    return sinusoid(torch.arange(n, device=device), d)
+
+
 # ------------------------------------------------------------------ norms
 def rmsnorm_init(d: int, device) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}

@@ -19,11 +19,13 @@ Three execution modes share the parameters:
 
 A VLM's ``prefix_embeds`` (B, P, d) are prepended to the token embeddings
 and take positions 0 … P-1; the loss drops the prefix positions.
+``rope='none'`` adds absolute sinusoid positions at the embedding.  The
+encoder-decoder family is ``models/encdec.py``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -82,21 +84,6 @@ def n_groups(cfg: ArchConfig) -> int:
     return cfg.n_layers // period
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Refuse what the port lacks: the audio encoder-decoder family, and
-    ``rope='none'`` (absolute sinusoid positions) on a model with
-    attention, which comes with it.  An SSM model has no attention, so its
-    ``rope='none'`` runs (the sinusoid is added at the embedding)."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio encoder-decoder family is not ported")
-    if cfg.rope == "none" and any(mx == "attn" for mx, _ in layer_specs(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: rope='none' on a model with attention (absolute "
-            f"sinusoid positions, the encoder-decoder family's) is not "
-            f"ported")
-
-
 # ------------------------------------------------------------------ init
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
                 mlp_kind: Optional[str]) -> dict:
@@ -120,18 +107,23 @@ def _group_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
             for i, (mx, mk) in enumerate(layer_specs(cfg))}
 
 
-def init_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    """Random fp32 parameters on the generator's device.  The groups are
-    drawn one after another into the stacked leaves, so at most one
-    group's parameters exist twice."""
-    check_supported(cfg)
-    ng = n_groups(cfg)
-    first = _group_init(gen, cfg)
-    groups = tree_map(lambda t: t.new_empty((ng,) + tuple(t.shape)), first)
-    tree_map(lambda s, t: s[0].copy_(t), groups, first)
+def stacked_draws(n: int, draw: Callable[[], dict]) -> dict:
+    """``n`` trees from ``draw()``, every leaf stacked along a new leading
+    axis.  They are drawn one after another into the stacked leaves, so
+    at most one draw's tree exists twice."""
+    first = draw()
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    tree_map(lambda s, t: s[0].copy_(t), out, first)
     del first
-    for g in range(1, ng):
-        tree_map(lambda s, t: s[g].copy_(t), groups, _group_init(gen, cfg))
+    for i in range(1, n):
+        tree_map(lambda s, t: s[i].copy_(t), out, draw())
+    return out
+
+
+def init_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """Random fp32 parameters on the generator's device, the groups stacked
+    (:func:`stacked_draws`)."""
+    groups = stacked_draws(n_groups(cfg), lambda: _group_init(gen, cfg))
     params = {
         "embed": M.embedding_init(gen, cfg.vocab_size, cfg.d_model),
         "groups": groups,
@@ -202,7 +194,7 @@ def _embed_inputs(params: dict, cfg: ArchConfig, tokens: Tensor,
     x = M.embedding_apply(params["embed"], tokens, act_dtype(cfg))
     if _check_prefix(cfg, tokens, prefix_embeds):
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    if cfg.rope == "none":  # absolute sinusoid (attention-free here)
+    if cfg.rope == "none":  # absolute sinusoid (whisper-style decoder)
         pos = torch.arange(x.shape[1], device=x.device)
         x = x + M.sinusoid(pos, cfg.d_model)[None].to(x.dtype)
     return x
@@ -215,7 +207,6 @@ def _forward(params: dict, cfg: ArchConfig, tokens: Tensor, *,
     """Embedding, the groups and the final norm: (hidden, the summed MoE
     auxiliary loss (None without MoE layers), the stacked cache if
     ``cache_len`` else None)."""
-    check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -299,7 +290,6 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     """Empty cache, stacked per group (leading axis ``n_groups``): a bf16
     KV cache for each attention layer, fp32 ``{conv, h}`` for each mamba
     mixer."""
-    check_supported(cfg)
     dev = resolve_device(device)
     group = {}
     for i, (mx, _) in enumerate(layer_specs(cfg)):
@@ -336,7 +326,6 @@ def decode_step(params: dict, cfg: ArchConfig, token: Tensor, cache: dict,
     """One decode step.  token: (B,) ints; ``pos``: the absolute position
     (an int or a 0-d tensor).  Returns (logits (B, vocab), the updated
     cache, a new tree: ``cache`` is not written)."""
-    check_supported(cfg)
     x = M.embedding_apply(params["embed"], token[:, None], act_dtype(cfg))
     # once a step, on the device; no layer reads the position back
     pos = A.position(pos, x.device)

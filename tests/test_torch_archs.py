@@ -1,12 +1,13 @@
-"""Port parity for every decoder-only architecture of the registry, reduced
-(2 layers, d_model <= 256, <= 4 experts), against the JAX package on the
-CPU: the configs, the parameter tree, ``param_count()``, and the loss and
-its gradients on one batch.
+"""Port parity for every architecture of the registry, reduced (2 layers,
+d_model <= 256, <= 4 experts, an encoder-decoder's 2 encoder layers and 16
+frames), against the JAX package on the CPU: the configs, the parameter
+tree, ``param_count()``, and the loss and its gradients on one batch.
 
 Both sides start from the JAX-initialised parameters (``params_from_jax``)
-and the same numpy batch (a VLM's prefix embeddings included).  The fp32
-runs set ``dtype="float32"`` on the port and cast the JAX package's
-embedding to fp32.  Tolerances: the tree's key paths, shapes and the
+and the same numpy batch (a VLM's prefix embeddings and an
+encoder-decoder's frames included).  The fp32 runs set ``dtype="float32"``
+on the port and cast the JAX package's embedding to fp32, and its
+``encode``'s cast of the frames (``tests/test_torch_encdec.py``).  Tolerances: the tree's key paths, shapes and the
 parameter counts exactly; the loss within ``rtol=1e-5``; the gradients
 within ``rtol=1e-4`` and ``atol=1e-5`` (the MoE and scan gradients sum
 over tokens in other orders).  The streaming trainer's global scope on
@@ -26,6 +27,7 @@ import torch
 
 from repro import models as JMD
 from repro.configs import get_config as jget
+from repro.models import encdec as JED
 from repro.models import modules as JM
 from repro_torch import models as TMD
 from repro_torch.configs import ARCH_NAMES, RobustConfig, get_config
@@ -37,6 +39,8 @@ from repro_torch.optim import optimizers as TO
 from repro_torch.optim import schedules as TS
 from repro_torch.tree import tree_items, tree_leaves
 
+from test_torch_archs_step import FLOAT_INPUTS
+
 torch.set_num_threads(1)
 
 B, SEQ = 2, 16
@@ -44,10 +48,13 @@ B, SEQ = 2, 16
 
 @pytest.fixture
 def fp32_jax(monkeypatch):
-    """The JAX package casts activations to bf16 at the embedding; the fp32
-    parity runs cast to fp32 there instead."""
+    """The JAX package casts activations to bf16 at the embedding and an
+    encoder-decoder's frames at ``encode``; the fp32 parity runs cast to
+    fp32 there instead."""
+    from test_torch_encdec import _WideNumpy
     monkeypatch.setattr(JM, "embedding_apply", functools.partial(
         JM.embedding_apply, dtype=jnp.float32))
+    monkeypatch.setattr(JED, "jnp", _WideNumpy())
 
 
 def _batch(cfg, seed, lead=(B,)):
@@ -57,16 +64,19 @@ def _batch(cfg, seed, lead=(B,)):
     if cfg.n_patches:
         out["prefix_embeds"] = rng.normal(
             size=lead + (cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(
+            size=lead + (cfg.n_frames, cfg.d_model)).astype(np.float32)
     return out
 
 
 def _jb(batch):
-    return {k: jnp.asarray(v, jnp.float32 if k == "prefix_embeds"
+    return {k: jnp.asarray(v, jnp.float32 if k in FLOAT_INPUTS
                            else jnp.int32) for k, v in batch.items()}
 
 
 def _tb(batch):
-    return {k: torch.from_numpy(np.asarray(v)) if k == "prefix_embeds"
+    return {k: torch.from_numpy(np.asarray(v)) if k in FLOAT_INPUTS
             else torch.from_numpy(np.asarray(v)).long()
             for k, v in batch.items()}
 
@@ -85,12 +95,14 @@ def _plain(v):
     return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
 
 
-def test_registry_is_the_nine_decoder_only_architectures():
+def test_registry_is_the_ten_architectures():
+    """All of the JAX package's, in its order; one encoder-decoder."""
     from repro.configs import ARCH_NAMES as JNAMES
-    assert sorted(ARCH_NAMES) == sorted(set(JNAMES) - {"whisper-tiny"})
-    assert len(ARCH_NAMES) == 9
+    assert ARCH_NAMES == JNAMES and len(ARCH_NAMES) == 10
+    assert [n for n in ARCH_NAMES if get_config(n).is_encdec] == \
+        ["whisper-tiny"]
     with pytest.raises(KeyError, match="available"):
-        get_config("whisper-tiny")
+        get_config("whisper-large")
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
@@ -106,6 +118,7 @@ def test_config_matches_jax(name):
         assert ct.active_param_count() == cj.active_param_count()
         assert ct.moe_layer_indices() == cj.moe_layer_indices()
         assert ct.is_attention_free == cj.is_attention_free
+        assert ct.is_encdec == cj.is_encdec
     assert t.source == j.source and t.source
 
 

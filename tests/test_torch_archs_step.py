@@ -7,8 +7,8 @@ side by side).
 
 Both sides start from the JAX-initialised parameters and take the same
 numpy batch (11 workers of one sequence of 8 tokens, a VLM's prefix
-embeddings included) under the ``inf`` attack, f = 2, multi-Bulyan, SGD
-with momentum, fp32 activations.  Tolerances: per-worker losses within
+embeddings and an encoder-decoder's frames included) under the ``inf``
+attack, f = 2, multi-Bulyan, SGD with momentum, fp32 activations.  Tolerances: per-worker losses within
 ``rtol=1e-4``; the selection exactly and the byzantine mass 0 on both;
 the honest deviation within ``rtol=1e-3``; the updated parameters within
 ``rtol=1e-4, atol=1e-5``, except at coordinates where multi-Bulyan's
@@ -66,7 +66,14 @@ def _batch(cfg, seed):
     if cfg.n_patches:
         out["prefix_embeds"] = rng.normal(
             size=(N, 1, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(
+            size=(N, 1, cfg.n_frames, cfg.d_model)).astype(np.float32)
     return out
+
+
+#: the batch's embedding inputs (floats); the rest are token ids
+FLOAT_INPUTS = ("prefix_embeds", "frames")
 
 
 def assert_step_close(got, want, err_msg):
@@ -79,7 +86,10 @@ def assert_step_close(got, want, err_msg):
     assert diff.max() <= TIE_ATOL, f"{err_msg}: max abs diff {diff.max()}"
 
 
-def step_matches_jax(name):
+def step_matches_jax(name, selection_ulps=0):
+    """One step of ``name`` on both sides.  ``selection_ulps``: how many
+    fp32 ulps the per-worker selection mass may differ by (0: bit for bit),
+    the selected workers the same set either way."""
     jcfg = jget(name).reduced()
     tcfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
     jparams = JMD.init_model(jax.random.key(0), jcfg)
@@ -93,9 +103,9 @@ def step_matches_jax(name):
     tstep = TTR.make_train_step(
         tcfg, RobustConfig(n_workers=N, f=F), opt_t, TS.constant(0.05),
         chunk_q=SEQ, attack="inf", telemetry=True)
-    jb = {k: jnp.asarray(v, jnp.float32 if k == "prefix_embeds"
+    jb = {k: jnp.asarray(v, jnp.float32 if k in FLOAT_INPUTS
                          else jnp.int32) for k, v in batch.items()}
-    tb = {k: torch.from_numpy(v) if k == "prefix_embeds"
+    tb = {k: torch.from_numpy(v) if k in FLOAT_INPUTS
           else torch.from_numpy(v).long() for k, v in batch.items()}
     jp, _, jm = jstep(jparams, JTR.init_train_state(opt_j, jparams), jb,
                       jax.random.key(2))
@@ -103,8 +113,9 @@ def step_matches_jax(name):
     np.testing.assert_allclose(tm["loss_per_worker"].numpy(),
                                np.asarray(jm["loss_per_worker"]), rtol=1e-4)
     jt, tt = jm["telemetry"], tm["telemetry"]
-    np.testing.assert_array_equal(tt["selection"].numpy(),
-                                  np.asarray(jt["selection"]))
+    tsel, jsel = tt["selection"].numpy(), np.asarray(jt["selection"])
+    np.testing.assert_array_equal(tsel > 0, jsel > 0)
+    np.testing.assert_array_max_ulp(tsel, jsel, maxulp=selection_ulps)
     assert float(tt["byz_mass"]) == float(jt["byz_mass"]) == 0.0
     np.testing.assert_allclose(float(tt["honest_dev"]),
                                float(jt["honest_dev"]), rtol=1e-3)

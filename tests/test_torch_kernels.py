@@ -1,5 +1,6 @@
 """K1 (pairwise_stats), K2 (fused_select), K5 (dequant_stats) and K3
-(coord_select) of the port.
+(coord_select) of the port, K2 and K3 at every θ (the counted variants
+above 32 included).
 
 On the CPU the plain PyTorch versions (``repro_torch.kernels.ref``) are
 held to the Pallas kernels run in interpret mode, over the edge grid of
@@ -17,6 +18,7 @@ Pallas kernel in ``tests/test_torch_substrates.py``.  JAX is imported only by th
 use it, so on a GPU machine without JAX the card tests run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
+import ctypes
 import types
 
 import numpy as np
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from repro_torch.core import gar as TG
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, ops, ref, select_cases
 from repro_torch.kernels.coord_select import coord_select_cuda
 from repro_torch.kernels.dequant_stats import dequant_stats_cuda
 from repro_torch.kernels import fused_select as K2
@@ -301,6 +303,98 @@ def test_coord_select_plain_matches_pallas_on_non_finite(jx, theta, beta):
     _nan_aware_close(got.numpy(), want)
 
 
+# ---------------------------------------------- θ > 32 (counted variants)
+WIDE_THETAS = (33, 34, 40)
+
+
+@pytest.mark.parametrize("theta", WIDE_THETAS)
+@pytest.mark.parametrize("case", ["plan", "ties", "non_finite"])
+def test_fused_select_plain_matches_pallas_wide_theta(jx, theta, case):
+    """θ above the 32 register slots, where the CUDA wrapper takes the
+    counted variant: the plain version against the Pallas kernel, on a
+    real multi-Bulyan plan (n = θ + 2f + 2, f = 2), on one-hot / uniform
+    weights with tied extracted values and distances, and on NaN, ±inf,
+    ±0 and 1e30 in the stack (NaN-aware)."""
+    if case == "plan":
+        w_ext, w_agr, beta = _plan(theta + 6, 2, seed=theta)
+        x = _x(theta + 6, 130, seed=theta + 1)
+    else:
+        n, beta = theta + 3, -(-theta // 2)
+        w_ext, w_agr = _synthetic_plan(theta, n, seed=theta)
+        x = _non_finite_stack(n, 240, seed=n) if case == "non_finite" \
+            else _x(n, 130, seed=theta + 2)
+    jnp = jx.jnp
+    want = jx.fused_select(jnp.asarray(x), jnp.asarray(w_ext),
+                           jnp.asarray(w_agr), beta, d_tile=128,
+                           interpret=True)
+    got = ref.fused_select_ref(_t(x), _t(w_ext), _t(w_agr), beta)
+    if case == "non_finite":
+        assert np.isnan(np.asarray(want)).any()
+        _nan_aware_close(got.numpy(), want)
+    else:
+        _close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("theta", WIDE_THETAS)
+@pytest.mark.parametrize("case", ["normal", "ties", "non_finite"])
+def test_coord_select_plain_matches_pallas_wide_theta(jx, theta, case):
+    """K3's plain version at θ > 32 against the Pallas kernel: normal
+    inputs, every distance tied (the lower rows taken), and NaN in up to
+    every row of a g_ext column with specials in g_agr (NaN-aware).  The
+    Pallas kernel sums the β values in XLA's order, so the two agree
+    within fp32 rounding, not bit for bit."""
+    beta = theta - 4
+    if case == "non_finite":
+        ge, ga = _non_finite_coord(theta, 300, seed=theta)
+    else:
+        ge, ga = (t.numpy() for t in _coord_inputs(theta, 200, theta,
+                                                   ties=case == "ties"))
+    jnp = jx.jnp
+    want = jx.coord_select(jnp.asarray(ge), jnp.asarray(ga), beta,
+                           d_tile=128, interpret=True)
+    got = ref.coord_select_ref(_t(ge), _t(ga), beta)
+    if case == "non_finite":
+        _nan_aware_close(got.numpy(), want)
+    else:
+        _close(got.numpy(), np.asarray(want))
+
+
+def test_select_cases_hold_the_grid_and_its_non_finite_inputs():
+    """The θ > 32 cases the card tests and the smoke script share, at θ =
+    33, n = 39: each β of {1, 17, 33} at each width, then one non-finite
+    case; one-hot ``w_ext`` rows; the same draws on every call.  The
+    non-finite stack and the NaN-laden K3 inputs give the plain versions
+    NaN (a NaN median) beside finite values."""
+    k2 = list(select_cases.k2_cases(33, 39, "cpu"))
+    widths = len(select_cases.WIDE_WIDTHS)
+    assert len(k2) == 3 * widths + 1
+    assert [args[3] for _, args, _ in k2[:3]] == [1, 17, 33]
+    assert [non_finite for _, _, non_finite in k2] == [False] * 3 * widths \
+        + [True]
+    again = next(select_cases.k2_cases(33, 39, "cpu"))[1]
+    assert all(torch.equal(a, b) for a, b in zip(k2[0][1][:3], again[:3]))
+    x, w_ext, w_agr, beta = k2[-1][1]
+    assert x.shape == (39, select_cases.NON_FINITE_WIDTH)
+    assert torch.equal(w_ext.sum(dim=1), torch.ones(33))
+    out = ref.fused_select_ref(x, w_ext, w_agr, beta)
+    assert bool(torch.isnan(out).any()) and bool(torch.isfinite(out).any())
+    assert len(list(select_cases.k3_cases(33, True, "cpu"))) == 3 * widths
+    k3 = list(select_cases.k3_cases(33, False, "cpu"))
+    assert len(k3) == 3 * widths + 1 and k3[-1][2]
+    ge, ga, beta = k3[-1][1]
+    out = ref.coord_select_ref(ge, ga, beta)
+    assert bool(torch.isnan(out).any()) and bool(torch.isfinite(out).any())
+
+
+def test_variant_names():
+    """K2 and K3 share their dispatch: exact θ up to 16, the guarded slots
+    up to 32, the counted variant above."""
+    assert [K2.variant_name(t) for t in (1, 5, 16, 17, 32, 33, 1000)] == [
+        "theta=1", "theta=5", "theta=16", "theta<=32", "theta<=32",
+        "theta>32", "theta>32"]
+    assert ops.coord_select_variant_counts() == {}
+
+
 def test_fused_select_rejects_bad_shapes():
     x = torch.zeros((8, 64))
     w = torch.zeros((3, 8))
@@ -540,3 +634,84 @@ def test_k3_non_finite_matches_plain_on_card(card, theta, beta):
         want = ref.coord_select_ref(ge, ga, beta)
         torch.cuda.synchronize()
         assert _same_bits(got, want), f"d={d}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", select_cases.WIDE_THETAS)
+@pytest.mark.parametrize("n_extra", [1, 6, None])
+def test_k2_wide_theta_matches_plain_on_card(card, theta, n_extra):
+    """The counted variant (θ > 32) on ``select_cases.k2_cases``: n = θ +
+    1, θ + 6 or 256, β in {1, ⌈θ/2⌉, θ}, one-hot / uniform weights with
+    ties, at odd widths, and a non-finite stack: bit for bit the plain
+    version, NaN at the same places, and counted under ``"theta>32"``."""
+    n = 256 if n_extra is None else theta + n_extra
+    for label, args, non_finite in select_cases.k2_cases(theta, n, card):
+        before = fused_select_cuda.variant_launches.get("theta>32", 0)
+        got = fused_select_cuda(*args)
+        want = ref.fused_select_ref(*args)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), label
+        assert not non_finite or bool(torch.isnan(want).any()), label
+        assert fused_select_cuda.variant_launches["theta>32"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", select_cases.WIDE_THETAS)
+@pytest.mark.parametrize("ties", [False, True])
+def test_k3_wide_theta_matches_plain_on_card(card, theta, ties):
+    """K3's counted variant on ``select_cases.k3_cases``: β in {1, ⌈θ/2⌉,
+    θ} at odd widths, and NaN in up to every row of a g_ext column: bit for
+    bit the plain version, NaN at the same places, and counted under
+    ``"theta>32"``."""
+    for label, args, non_finite in select_cases.k3_cases(theta, ties, card):
+        before = coord_select_cuda.variant_launches.get("theta>32", 0)
+        got = coord_select_cuda(*args)
+        want = ref.coord_select_ref(*args)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), label
+        assert not non_finite or bool(torch.isnan(want).any()), label
+        assert coord_select_cuda.variant_launches["theta>32"] == before + 1
+
+
+@pytest.mark.cuda
+def test_counted_scratch_is_sized_and_checked_by_the_kernel_on_card(card):
+    """The counted K2's grid covers d in blocks of 128 columns, capped so
+    its scratch (2θ floats a thread) stays near 32 MB, one block an SM at
+    least; θ ≤ 32 takes none.  Its launcher refuses a scratch one float
+    short of that size (cudaErrorInvalidValue, 1)."""
+    floats = K2._scratch_fn()
+    assert floats(1, 34) == 2 * 34 * 128
+    assert floats(1000, 34) == 2 * 34 * 8 * 128
+    assert floats(10 ** 8, 34) == \
+        2 * 34 * ((32 << 20) // (8 * 34 * 128)) * 128
+    assert floats(10 ** 8, 1000) == 2 * 1000 * 132 * 128
+    assert floats(10 ** 8, 32) == 0 and floats(0, 34) == -1
+    theta, n, d = 34, 40, 1000
+    w_ext, w_agr = (_t(w).to(card) for w in _synthetic_plan(theta, n, 1))
+    x = _t(_x(n, d, seed=1)).to(card)
+    out = torch.empty((d,), device=card)
+    short = torch.empty((floats(d, theta) - 1,), device=card)
+    variant = ctypes.c_int32(0)
+    err = K2._launch_fn()(
+        x.data_ptr(), w_ext.data_ptr(), w_agr.data_ptr(), out.data_ptr(),
+        short.data_ptr(), short.numel(), n, d, theta, 17, K2.MAX_BLOCKS,
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(variant))
+    assert err == 1
+
+
+@pytest.mark.cuda
+def test_wide_theta_past_any_shared_memory_on_card(card):
+    """θ = 1000 (8 KB of values a coordinate, the grid capped at one block
+    an SM): K2 and K3 bit for bit their plain versions."""
+    theta, n = 1000, 8
+    w_ext, w_agr = _synthetic_plan(theta, n, seed=7)
+    we, wa = _t(w_ext).to(card), _t(w_agr).to(card)
+    for d in (1, 257):
+        x = _t(_x(n, d, seed=d)).to(card)
+        got = fused_select_cuda(x, we, wa, 400)
+        want = ref.fused_select_ref(x, we, wa, 400, chunk=64)
+        ge, ga = (t.to(card) for t in _coord_inputs(theta, d, d))
+        got3 = coord_select_cuda(ge, ga, 999)
+        want3 = ref.coord_select_ref(ge, ga, 999, chunk=64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got3, want3), f"d={d}"

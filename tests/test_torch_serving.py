@@ -15,7 +15,11 @@ relative to each entry and to the largest |want|); the port's decode
 against its own forward within JAX's ``TOL = 5e-2`` (bf16 activations);
 the ensemble's selections exact and its fused logits within 1e-5 relative
 of JAX's aggregation on the same replica logits, bit for bit the honest
-logits when the honest replicas are identical.
+logits when the honest replicas are identical.  The calls the port refused
+before the encoder-decoder family (and ``rope='none'`` with attention)
+came are held to JAX's on reduced whisper-tiny and on the reduced qwen2
+with ``rope='none'`` (``FORMER_REFUSALS``); the whole encoder-decoder
+parity is ``tests/test_torch_encdec.py``.
 """
 import dataclasses
 import functools
@@ -59,6 +63,15 @@ def fp32_jax(monkeypatch):
     parity runs cast to fp32 there instead."""
     monkeypatch.setattr(JM, "embedding_apply", functools.partial(
         JM.embedding_apply, dtype=jnp.float32))
+
+
+@pytest.fixture
+def fp32_jax_encdec(fp32_jax, monkeypatch):
+    """:func:`fp32_jax` and ``encode``'s cast of the frames widened
+    (``tests/test_torch_encdec.py``)."""
+    from repro.models import encdec as JED
+    from test_torch_encdec import _WideNumpy
+    monkeypatch.setattr(JED, "jnp", _WideNumpy())
 
 
 def _cfgs(dtype="float32"):
@@ -365,47 +378,15 @@ def test_categorical_draws_follow_the_distribution():
 
 
 # ---------------------------------------------------------------- refusals
-def _other_family():
-    """A family the port still lacks: the audio encoder-decoder (the
-    decoder-only families all run)."""
-    return dataclasses.replace(_cfgs()[1], family="audio", name="audio-cfg")
-
-
 def _refusals():
     _, tcfg = _cfgs()
     params = TMD.init_model(tcfg, seed=0, device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.int32)
     batch = {"tokens": tok}
-    cache = TMD.init_cache_fn(params, tcfg, 1, 8)
-    moe, none = _other_family(), dataclasses.replace(tcfg, rope="none")
     return {
-        "prefill_moe": (NotImplementedError, "encoder-decoder family",
-                        lambda: TMD.prefill_fn(params, moe, batch)),
-        "decode_moe": (NotImplementedError, "encoder-decoder family",
-                       lambda: TMD.decode_fn(params, moe, tok[:, 0], cache,
-                                             4)),
-        "forward_moe": (NotImplementedError, "encoder-decoder family",
-                        lambda: TMD.forward_fn(params, moe, batch)),
-        "init_cache_moe": (NotImplementedError, "encoder-decoder family",
-                           lambda: TMD.init_cache_fn(params, moe, 1, 8)),
-        "decode_rope_none": (NotImplementedError, "rope='none'",
-                             lambda: TMD.decode_fn(params, none, tok[:, 0],
-                                                   cache, 4)),
-        "prefill_rope_none": (NotImplementedError, "rope='none'",
-                              lambda: TMD.prefill_fn(params, none, batch)),
         "prefix_embeds": (ValueError, "prefix_embeds",
                           lambda: TMD.prefill_fn(params, tcfg, {
                               **batch, "prefix_embeds": torch.zeros(1)})),
-        "frames": (NotImplementedError, "frames",
-                   lambda: TMD.forward_fn(params, tcfg, {
-                       **batch, "frames": torch.zeros(1)})),
-        "memory": (NotImplementedError, "encoder-decoder",
-                   lambda: TMD.init_cache_fn(params, tcfg, 1, 8,
-                                             memory=torch.zeros(1))),
-        "extra_batch": (NotImplementedError, "extra_batch",
-                        lambda: TSV.generate(params, tcfg, tok, 2,
-                                             extra_batch={
-                                                 "frames": torch.zeros(1)})),
         "categorical_no_seed": (ValueError, "needs a seed",
                                 lambda: TSV.generate(params, tcfg, tok, 2,
                                                      sample="categorical")),
@@ -416,13 +397,136 @@ def _refusals():
 
 
 @pytest.mark.parametrize("case", [
-    "prefill_moe", "decode_moe", "forward_moe", "init_cache_moe",
-    "decode_rope_none", "prefill_rope_none", "prefix_embeds", "frames",
-    "memory", "extra_batch", "categorical_no_seed", "unknown_sample"])
+    "prefix_embeds", "categorical_no_seed", "unknown_sample"])
 def test_refusals(case):
     exc, match, fn = _refusals()[case]
     with pytest.raises(exc, match=match):
         fn()
+
+
+# ---------------------------------------- calls that were refused, now run
+def _audio_pair():
+    """Reduced whisper-tiny (the audio encoder-decoder) on both sides, the
+    same parameters, fp32 activations."""
+    jcfg = jget("whisper-tiny").reduced()
+    tcfg = dataclasses.replace(get_config("whisper-tiny").reduced(),
+                               dtype="float32")
+    jp, tp = _params(jcfg)
+    rng = np.random.default_rng(50)
+    fr = rng.normal(size=(B, jcfg.n_frames, jcfg.d_model)).astype(
+        np.float32)
+    tok = _tokens((B, 8), 51)
+    jb = {"tokens": jnp.asarray(tok), "frames": jnp.asarray(fr)}
+    tb = {"tokens": torch.from_numpy(tok), "frames": torch.from_numpy(fr)}
+    return jcfg, tcfg, jp, tp, jb, tb
+
+
+def _rope_none_pair():
+    jcfg, tcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, rope="none")
+    tcfg = dataclasses.replace(tcfg, rope="none")
+    jp, tp = _params(jcfg)
+    tok = _tokens((B, 8), 52)
+    return (jcfg, tcfg, jp, tp, {"tokens": jnp.asarray(tok)},
+            {"tokens": torch.from_numpy(tok)})
+
+
+def _decode_from_jax_cache(pair):
+    """A decode step from JAX's prefill cache carried across."""
+    jcfg, tcfg, jp, tp, jb, tb = pair
+    _, jc = JMD.prefill_fn(jp, jcfg, jb, chunk_q=8, cache_len=12)
+    tc = TMD.cache_from_jax(_jcache_np(jc), device="cpu")
+    nxt = _tokens((B,), 53)
+    want, _ = JMD.decode_fn(jp, jcfg, jnp.asarray(nxt), jc, jnp.int32(8))
+    got, _ = TMD.decode_fn(tp, tcfg, torch.from_numpy(nxt), tc, 8)
+    _close(got, want, 1e-4)
+
+
+def _prefill(pair):
+    jcfg, tcfg, jp, tp, jb, tb = pair
+    want, _ = JMD.prefill_fn(jp, jcfg, jb, chunk_q=8, cache_len=12)
+    got, _ = TMD.prefill_fn(tp, tcfg, tb, chunk_q=8, cache_len=12)
+    _close(got, want, 1e-4)
+
+
+def _forward_audio():
+    jcfg, tcfg, jp, tp, jb, tb = _audio_pair()
+    want = JMD.forward_fn(jp, jcfg, jb, chunk_q=8, logits_tail=2)
+    got = TMD.forward_fn(tp, tcfg, tb, chunk_q=8, logits_tail=2)
+    assert tuple(got.shape) == (B, 2, jcfg.vocab_size)
+    _close(got, want, 1e-4)
+
+
+def _init_cache_audio():
+    jcfg, tcfg, jp, tp, jb, tb = _audio_pair()
+    from repro.models import encdec as JED
+    from repro_torch.models import encdec as TED
+    want = JMD.init_cache_fn(jp, jcfg, B, 12,
+                             memory=JED.encode(jp, jcfg, jb["frames"]))
+    got = TMD.init_cache_fn(tp, tcfg, B, 12,
+                            memory=TED.encode(tp, tcfg, tb["frames"]))
+    for t, j in zip(tree_leaves(got["self"]), jax.tree.leaves(want["self"])):
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == j.shape
+        assert not t.any()
+    for key, j in zip(("k", "v"), want["cross"]):
+        _close(got["cross"][key], j, 1e-5)
+
+
+def _loss_with_frames():
+    jcfg, tcfg, jp, tp, jb, tb = _audio_pair()
+    labels = _tokens((B, 8), 54)
+    want = JMD.loss_fn(jp, jcfg, {**jb, "labels": jnp.asarray(labels)},
+                       chunk_q=8)
+    got = TMD.loss_fn(tp, tcfg, {**tb, "labels": torch.from_numpy(labels)},
+                      chunk_q=8)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def _decode_from_memory():
+    """The first token decoded from ``init_cache_fn(memory=)``'s empty
+    cache, at position 0."""
+    jcfg, tcfg, jp, tp, jb, tb = _audio_pair()
+    from repro.models import encdec as JED
+    from repro_torch.models import encdec as TED
+    jc = JMD.init_cache_fn(jp, jcfg, B, 12,
+                           memory=JED.encode(jp, jcfg, jb["frames"]))
+    tc = TMD.init_cache_fn(tp, tcfg, B, 12,
+                           memory=TED.encode(tp, tcfg, tb["frames"]))
+    nxt = _tokens((B,), 55)
+    want, _ = JMD.decode_fn(jp, jcfg, jnp.asarray(nxt), jc, jnp.int32(0))
+    got, _ = TMD.decode_fn(tp, tcfg, torch.from_numpy(nxt), tc, 0)
+    _close(got, want, 1e-4)
+
+
+def _generate_with_frames():
+    jcfg, tcfg, jp, tp, jb, tb = _audio_pair()
+    want = JSV.generate(jp, jcfg, jb["tokens"], 3, chunk_q=8,
+                        extra_batch={"frames": jb["frames"]})
+    got = TSV.generate(tp, tcfg, tb["tokens"], 3, chunk_q=8,
+                       extra_batch={"frames": tb["frames"]})
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+#: each call the port refused before it had the encoder-decoder family
+#: (and ``rope='none'`` with attention), held to JAX's on a config that
+#: now runs: logits within 1e-4 relative, the loss within 1e-5, the cross
+#: K/V within 1e-5, greedy tokens equal
+FORMER_REFUSALS = {
+    "prefill_audio": lambda: _prefill(_audio_pair()),
+    "decode_audio": lambda: _decode_from_jax_cache(_audio_pair()),
+    "forward_audio": _forward_audio,
+    "init_cache_audio": _init_cache_audio,
+    "decode_rope_none": lambda: _decode_from_jax_cache(_rope_none_pair()),
+    "prefill_rope_none": lambda: _prefill(_rope_none_pair()),
+    "frames": _loss_with_frames,
+    "memory": _decode_from_memory,
+    "extra_batch": _generate_with_frames,
+}
+
+
+@pytest.mark.parametrize("case", list(FORMER_REFUSALS))
+def test_former_refusals_match_jax(fp32_jax_encdec, case):
+    FORMER_REFUSALS[case]()
 
 
 # --------------------------------------------------------------- backend

@@ -37,7 +37,9 @@ hash.  It also prints a hash of the kernel's outputs over every leaf, so
 that two versions that should agree bit for bit can be seen to.
 ``--profile`` adds one more pass over the leaves under ``torch.profiler``
 and reports the device time of each CUDA kernel it launched, summed over
-the leaves (``"profile"``: {kernel name: ms}).
+the leaves (``"profile"``: {kernel name: ms}).  K2 and K3 also report
+their bound over the leaves (``"bound_ms"``, ``"bound_by"``), as
+``chip_smoke.py``'s ``k2_bound_s`` / ``k3_bound_s`` count it.
 
 The card's name and power limit come first; the last line is one JSON
 object with every run and, per checkout, the median over its runs.
@@ -152,6 +154,20 @@ def child(src, kernel, reps, n, f, dtype, grid, copy, profile):
     plan = api.get_aggregator("multi_bulyan").plan(
         api.AggStats(n=n, f=f, dists=api.finalize_dists(raw)))
     theta = plan.w_ext.shape[0]
+    bound = {}
+    if kernel in ("k2", "k3"):
+        sys.path.insert(1, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        import chip_smoke
+        s = {"bytes": 0.0, "operations": 0.0}
+        for m in numels:
+            leaf = chip_smoke.k2_bound_s(n, m, theta, plan.beta) \
+                if kernel == "k2" else chip_smoke.k3_bound_s(m, theta,
+                                                              plan.beta)
+            for key in s:
+                s[key] += leaf[key]
+        bound = {"bound_ms": 1e3 * max(s.values()),
+                 "bound_by": max(s, key=s.get)}
 
     def inputs(i, m):
         if kernel in ("k5", "k7"):
@@ -225,7 +241,7 @@ def child(src, kernel, reps, n, f, dtype, grid, copy, profile):
     print(json.dumps({"src": src, "kernel": kernel, "ms": total,
                       "leaves": len(numels), "n": n, "theta": theta,
                       "beta": plan.beta, "dtype": dtype, "grid": grid,
-                      "copy": copy, "sha256": digest.hexdigest(),
+                      "copy": copy, "sha256": digest.hexdigest(), **bound,
                       **({"profile": per_kernel} if profile else {})}),
           flush=True)
 
