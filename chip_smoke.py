@@ -288,6 +288,45 @@ frames; 56,378,112 parameters in 41 leaves):
   mass 0, the fused logits the honest model's bit for bit, the tokens
   ``generate``'s with the same frames.
 
+The hierarchical phases (``repro_torch.hier``, after the streaming
+phases), kernels on, the ``inf`` attack unless a phase says otherwise:
+
+* H1: ``launch/train.py`` at the training phase's flags with ``--workers
+  21 --f 1 --hier g=7`` (3 groups of 7, f_inner = 1, f_outer = 0, the
+  outer level ``average``; a 21 x 326,970,880 fp32 stack, 27.47 GB): the
+  hier line printed, finite losses, byzantine mass 0 at every step, K1
+  and K2 3 times per leaf per step (every K2 launch at theta = 3), K3 and
+  K5 never; its peak memory under 60 GiB;
+* H2: H1's first batch's gradients after the attack through
+  ``hier_aggregate_tree`` with the kernels and with the plain versions on
+  the card: every inner plan and the aggregate bit for bit the same
+  (NaN-aware); flat multi-Bulyan (n = 21, theta = 17) and the grouped
+  aggregation timed on that stack (stats + plan + apply, CUDA events,
+  median of 5) beside each one's bound (K1 and K2 of every level, each
+  input read once, each output written once), each traced once (kernel
+  time against wall time), not gated;
+* H3: the training phase's flags with ``--hier g=11`` (one group): the
+  records and the final parameters bit for bit the training phase's;
+* H4: H1 on ``--trainer stream_global`` (bit for bit H1) and
+  ``stream_block`` (finite losses, byzantine mass 0, K1 and K2 3 per leaf
+  per step);
+* H5: ``--hier g=7 --codec qsgd:bits=8 --attack scale_poison`` at n = 21,
+  1 layer, 2 steps, stacked and on ``stream_global``: both ``wire[...]``
+  lines printed, the leaders' bytes 3 x a worker's, K5 and K2 3 per leaf
+  per step, byzantine mass 0, streaming bit for bit stacked; then its
+  first step's QSGD container (the launcher's gradients, encoding seed
+  and forgery) through ``hier_aggregate_tree`` (the leader re-encode on)
+  with the kernels and with the plain versions of K1, K2 and K5: every
+  inner plan, the aggregate and the leaders' bytes bit for bit the same,
+  and K5 held to its plain version (as the K5 cases above) on every
+  group's slice of every leaf's payload, the rows at their offset;
+* H6: whisper-tiny whole at n = 49, f = 3, ``--hier g=7``, 2 steps (7
+  groups of 7, f_inner = f_outer = 1, the outer level multi-Bulyan): K1
+  and K2 8 per leaf per step (7 inner, 1 outer), all at theta = 3,
+  byzantine mass 0; on one batch's stack the flat n = 49 aggregation
+  (theta = 41, K2's counted variant) timed and traced against the
+  grouped one, beside their bounds, not gated.
+
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
 route or a serving phase and read just after it (``launches_by_phase``
@@ -460,6 +499,32 @@ THETA_WIDE = WIDE_N - 2 * F - 2
 WHISPER_WIDE_ARGS = with_flags(WHISPER_ARGS, workers=WIDE_N, steps=2)
 WHISPER_LEAVES = 41
 WHISPER_SERVE_ARGS = with_flags(SERVE_ARGS, arch="whisper-tiny")
+#: the hierarchical phases: n = 21, f = 1 in groups of 7 (3 groups,
+#: f_inner = 1, f_outer = 0: the outer level averages), so every K2 launch
+#: has theta = 7 - 2 - 2 = 3; whisper at n = 49, f = 3 in 7 groups of 7
+#: (f_inner = f_outer = 1: 7 inner launches and one outer a leaf)
+HIER_N, HIER_F, HIER_G = 21, 1, 7
+THETA_HIER = HIER_G - 2 * 1 - 2
+THETA_HIER_FLAT = HIER_N - 2 * HIER_F - 2
+HIER_ARGS = with_flags(TRAIN_ARGS, workers=HIER_N, f=HIER_F) + [
+    "--hier", f"g={HIER_G}"]
+HIER_LINE = "[train] hier: 3 groups [7, 7, 7] f_inner=1 f_outer=0 " \
+    "inner=multi_bulyan outer=average"
+HIER_K1_K2 = {**K1_K2, "pairwise_stats": 3, "fused_select": 3}
+HIER_PEAK_LIMIT = 60 * 2 ** 30
+HIER_ONE_GROUP_ARGS = TRAIN_ARGS + ["--hier", f"g={N}"]
+HIER_WIRE_ARGS = with_flags(HIER_ARGS, attack="scale_poison", layers=1,
+                            steps=2) + ["--codec", "qsgd:bits=8"]
+HIER_K5_K2 = {**HIER_K1_K2, "pairwise_stats": 0, "dequant_stats": 3}
+HIER_WHISPER_N, HIER_WHISPER_F = 49, 3
+THETA_WHISPER_FLAT = HIER_WHISPER_N - 2 * HIER_WHISPER_F - 2
+HIER_WHISPER_ARGS = with_flags(WHISPER_ARGS, workers=HIER_WHISPER_N,
+                               f=HIER_WHISPER_F, steps=2) + [
+    "--hier", f"g={HIER_G}"]
+HIER_WHISPER_LINE = "[train] hier: 7 groups [7, 7, 7, 7, 7, 7, 7] " \
+    "f_inner=1 f_outer=1 inner=multi_bulyan outer=multi_bulyan"
+HIER_WHISPER_K1_K2 = {**K1_K2, "pairwise_stats": 8, "fused_select": 8}
+HIER_REPS = 5
 
 
 class SmokeFailure(Exception):
@@ -2484,7 +2549,8 @@ def repeated_step(torch, label, argv):
     cfg = MD.arch_config(args.arch, reduced=args.reduced,
                          layers=args.layers)
     opt, step = train.make_trainer(args, cfg, train.robust_config(args),
-                                   constant(0.05))
+                                   constant(0.05),
+                                   hier=train.hier_config(args)[0])
     params = MD.init_model(cfg, seed=args.seed, device="cuda")
     batch = next(train.worker_batches(args, cfg, torch.device("cuda")))
     runs = []
@@ -3131,6 +3197,341 @@ def encdec_serving(torch, power):
 
 
 
+def stack_of(torch, argv, n, f):
+    """Step 0's (n, ...) gradient stack of ``argv``'s run, after the
+    ``inf`` attack on the first f rows: the stack the launcher's first
+    step aggregates."""
+    from repro_torch import models as MD
+    from repro_torch.dist import inject_byzantine, per_worker_grads
+    cfg, batch = whisper_batch(torch, argv)
+    params = MD.init_model(cfg, seed=0, device="cuda")
+    _, grads = per_worker_grads(params, cfg, batch, chunk_q=128)
+    del params, batch
+    with torch.no_grad():
+        inject_byzantine(grads, f, "inf", seed=0)
+    return grads
+
+
+def level_bound_s(n, m, plan):
+    """The least seconds of one level's kernels on an (n, m) operand: K1
+    (the stack read once, the (n, n) result written once; the gram's
+    upper triangle in fp32) and K2 (:func:`k2_bound_s`), each the larger
+    of its two times; for a weighted plan (the average) the stack read
+    once and the mean written once."""
+    if plan.kind != "bulyan":
+        return 4 * (n * m + m) / HBM_BYTES_PER_S
+    k1 = max(4 * (n * m + n * n + n) / HBM_BYTES_PER_S,
+             n * (n + 1) * m / FP32_FLOP_PER_S)
+    return k1 + max(k2_bound_s(n, m, plan.w_ext.shape[0],
+                               plan.beta).values())
+
+
+def traced(torch, label, fn):
+    """``fn()`` once under ``torch.profiler`` (:func:`log_profile`)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return log_profile(torch, prof, label, wall_ms, 4)
+
+
+def flat_against_hier(torch, label, grads, n, f, theta_flat, power):
+    """Flat multi-Bulyan and the grouped aggregation (groups of HIER_G) on
+    one stack, kernels on: stats + plan + apply, CUDA events, median of
+    HIER_REPS, beside each one's bound (:func:`level_bound_s` of every
+    level over the leaves), then each traced once.  Returns {"flat_ms",
+    "hier_ms", "flat_bound_ms", "hier_bound_ms", "flat_trace",
+    "hier_trace"}."""
+    from repro_torch.core import api
+    from repro_torch.hier import GroupConfig, hier_aggregate_tree
+    from repro_torch.tree import tree_leaves
+    flat = api.AggregatorBackend("multi_bulyan", f)
+    cfg = GroupConfig(g=HIER_G)
+    widths = [x[0].numel() for x in tree_leaves(grads)]
+    with torch.no_grad():
+        plan = flat.plan(flat.stats(grads))
+        check(plan.w_ext.shape[0] == theta_flat,
+              f"{label}: flat theta {plan.w_ext.shape[0]}")
+        _, hplan, _ = hier_aggregate_tree(grads, f, cfg, use_kernels=True)
+        check(all(p.w_ext.shape[0] == THETA_HIER for p in hplan.inner),
+              f"{label}: inner thetas differ from {THETA_HIER}")
+        out = {"flat_bound_ms": 1e3 * sum(level_bound_s(n, m, plan)
+                                          for m in widths),
+               "hier_bound_ms": 1e3 * sum(
+                   sum(level_bound_s(e - s, m, p)
+                       for p, (s, e) in zip(hplan.inner, hplan.bounds))
+                   + level_bound_s(hplan.n_groups, m, hplan.outer)
+                   for m in widths)}
+        del plan, hplan
+        flat_fn = lambda: flat.apply(  # noqa: E731
+            flat.plan(flat.stats(grads)), grads)
+        hier_fn = lambda: hier_aggregate_tree(  # noqa: E731
+            grads, f, cfg, use_kernels=True)
+        out["flat_ms"] = time_ms(torch, flat_fn, HIER_REPS)
+        out["hier_ms"] = time_ms(torch, hier_fn, HIER_REPS)
+        out["flat_trace"] = traced(torch, f"{label}, flat:", flat_fn)
+        out["hier_trace"] = traced(torch, f"{label}, grouped:", hier_fn)
+    log(f"{label}: stats + plan + apply on the ({n}, ...) stack, median of "
+        f"{HIER_REPS} (CUDA events): flat multi-Bulyan (theta = "
+        f"{theta_flat}) {out['flat_ms']:.4f} ms (bound "
+        f"{out['flat_bound_ms']:.4f}), grouped (g = {HIER_G}, theta = "
+        f"{THETA_HIER}) {out['hier_ms']:.4f} ms (bound "
+        f"{out['hier_bound_ms']:.4f}) "
+        f"({out['flat_ms'] / out['hier_ms']:.2f}x); card {power}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """K1, K2 and K5's wrappers in ``kernels.ops`` (what ``core.api`` and
+    ``comm.codecs`` call) replaced by their plain versions, which run on
+    the card too."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.pairwise_stats, ops.fused_select, ops.dequant_stats
+    ops.pairwise_stats, ops.fused_select, ops.dequant_stats = \
+        ref.pairwise_stats_ref, ref.fused_select_ref, ref.dequant_stats_ref
+    try:
+        yield
+    finally:
+        ops.pairwise_stats, ops.fused_select, ops.dequant_stats = saved
+
+
+def same_hier_runs(torch, label, got, want):
+    """Two ``hier_aggregate_tree`` results, (aggregate, plan, info), with
+    every inner plan at theta = THETA_HIER and, like the aggregates and
+    the leaders' bytes, bit for bit the same (NaN-aware)."""
+    from repro_torch.tree import tree_leaves
+    (agg_k, plan_k, info_k), (agg_p, plan_p, info_p) = got, want
+    for i, (pk, pp) in enumerate(zip(plan_k.inner, plan_p.inner)):
+        check(pk.w_ext.shape[0] == THETA_HIER and pk.beta == pp.beta
+              and same_bits(torch, pk.w_ext, pp.w_ext)
+              and same_bits(torch, pk.w_agr, pp.w_agr),
+              f"{label}: group {i}'s plan differs from the plain one")
+    for i, (a, b) in enumerate(zip(tree_leaves(agg_k), tree_leaves(agg_p))):
+        check(same_bits(torch, a, b), f"{label}: the aggregate's leaf {i} "
+              f"is {abs_err(torch, a, b)} from the plain one's")
+    check(info_k["leader_wire_bytes"] == info_p["leader_wire_bytes"],
+          f"{label}: leaders' bytes {info_k['leader_wire_bytes']} against "
+          f"{info_p['leader_wire_bytes']}")
+
+
+def hier_kernels_vs_plain(torch, power):
+    """H2: H1's first stack through ``hier_aggregate_tree`` with the
+    kernels and with their plain versions on the card: every inner plan
+    (theta = 3) and the aggregate bit for bit the same; then flat against
+    grouped, timed.  Returns (the kernel run's counts, the timing)."""
+    from repro_torch.hier import GroupConfig, hier_aggregate_tree
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    label = "H2 hier aggregation, kernels vs plain"
+    grads = stack_of(torch, HIER_ARGS, HIER_N, HIER_F)
+    cfg = GroupConfig(g=HIER_G)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        run_k = hier_aggregate_tree(grads, HIER_F, cfg, use_kernels=True,
+                                    needs_dists=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        n_leaves = len(tree_leaves(grads))
+        want = {**NO_KERNELS, "pairwise_stats": 3 * n_leaves,
+                "fused_select": 3 * n_leaves}
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        k2_variant_check(label, counts["fused_select"], THETA_HIER)
+        with plain_versions():
+            run_p = hier_aggregate_tree(grads, HIER_F, cfg,
+                                        use_kernels=True, needs_dists=True)
+    same_hier_runs(torch, label, run_k, run_p)
+    plan_k = run_k[1]
+    byz = float(torch.sum(plan_k.selection_weights()[:HIER_F]))
+    check(byz == 0.0, f"{label}: byzantine mass {byz}")
+    del run_k, run_p
+    log(f"{label}: {plan_k.n_groups} inner plans (theta = {THETA_HIER}) "
+        f"and the aggregate bit for bit, launches {counts}")
+    timed = flat_against_hier(torch, "H2 flat vs hier (qwen2-1.5b, 2 "
+                              "layers)", grads, HIER_N, HIER_F,
+                              THETA_HIER_FLAT, power)
+    del grads
+    torch.cuda.empty_cache()
+    return counts, timed
+
+
+def hier_wire_kernels_vs_plain(torch, worst_k5):
+    """H5's first step's QSGD container (the launcher's gradients, its
+    encoding seed and its ``scale_poison`` forgery) through
+    ``hier_aggregate_tree`` with the leader re-encode, with the kernels
+    (K5 and K2, 3 a leaf) and with the plain versions of K1, K2 and K5:
+    :func:`same_hier_runs`.  Then K5 on every group's slice of every
+    leaf's payload, as ``comm.codecs.slice_workers`` cuts it, against
+    its plain version (:func:`compare_k5`, adding to ``worst_k5``).
+    Returns the worst |K5 - plain| over those slices."""
+    from repro_torch import models as MD
+    from repro_torch.comm import codecs as CC
+    from repro_torch.core.attacks import fold_seed
+    from repro_torch.dist import inject_wire, per_worker_grads
+    from repro_torch.dist.trainer import ENCODE_STREAM
+    from repro_torch.hier import GroupConfig, hier_aggregate_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    label = "H5 hier wire, kernels vs plain"
+    args = train.parse_args(HIER_WIRE_ARGS)
+    cfg, batch = whisper_batch(torch, HIER_WIRE_ARGS)
+    params = MD.init_model(cfg, seed=args.seed, device="cuda")
+    _, grads = per_worker_grads(params, cfg, batch,
+                                chunk_q=min(args.seq, 512))
+    del params, batch
+    codec = CC.get_codec(args.codec)
+    hcfg = GroupConfig(g=HIER_G)
+    with torch.no_grad():
+        enc, _ = codec.encode(grads, seed=fold_seed(args.seed,
+                                                    ENCODE_STREAM))
+        enc = inject_wire(enc, args.f, args.attack, args.seed)
+        decoded = codec.decode(enc, out=grads)
+        del grads
+        kw = dict(codec=codec, seed=args.seed, use_kernels=True,
+                  needs_dists=True, decoded=decoded)
+        ops.reset_launch_counts()
+        run_k = hier_aggregate_tree(enc, args.f, hcfg, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        n_leaves = len(enc.shapes)
+        want = {**NO_KERNELS, "dequant_stats": 3 * n_leaves,
+                "fused_select": 3 * n_leaves}
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        with plain_versions():
+            run_p = hier_aggregate_tree(enc, args.f, hcfg, **kw)
+        same_hier_runs(torch, label, run_k, run_p)
+        plan_k = run_k[1]
+        byz = float(torch.sum(plan_k.selection_weights()[:args.f]))
+        check(byz == 0.0, f"{label}: byzantine mass {byz}")
+        del run_k, run_p, decoded
+        worst = {"max_abs": 0.0, "max_rel": 0.0}
+        for s, e in plan_k.bounds:
+            sub = CC.slice_workers(enc, s, e)
+            for i, (p, sc) in enumerate(zip(tree_leaves(sub.payload),
+                                            CC.sidecar_leaves(sub))):
+                p2, mult = codec.dequant_form(p, sc)
+                compare_k5(torch, f"H5 rows [{s}, {e}) leaf {i}",
+                           p2.contiguous(), mult.float().contiguous(),
+                           None, worst)
+            del sub
+    del enc
+    for k in worst:
+        worst_k5[k] = max(worst_k5[k], worst[k])
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    log(f"{label}: {plan_k.n_groups} inner plans (theta = {THETA_HIER}), "
+        f"the aggregate and the leaders' bytes bit for bit, launches "
+        f"{counts}; K5 on {plan_k.n_groups} x {n_leaves} group slices, "
+        f"worst |K5 - plain| {worst['max_abs']:.3e} (relative "
+        f"{worst['max_rel']:.3e})")
+    return worst["max_abs"]
+
+
+def hier_training(torch, power, train_hist, train_params, worst_k5):
+    """The hierarchical phases H1-H6 (the module docstring); K5's checks
+    on H5's group slices add to ``worst_k5``.  Returns ({phase: counts},
+    {phase: numbers})."""
+    counts, numbers = {}, {}
+    t0 = time.perf_counter()
+    label = "H1 hier training (qwen2-1.5b, 2 layers, n = 21, --hier g=7)"
+    counts["hier"], _, hist, text, params = train_phase(
+        torch, label, HIER_ARGS, HIER_K1_K2, keep_params=True,
+        theta=THETA_HIER)
+    peak = torch.cuda.max_memory_allocated()
+    check(HIER_LINE in text.splitlines(), f"{label}: no line {HIER_LINE!r}")
+    check(peak < HIER_PEAK_LIMIT, f"{label}: peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    params = to_host(params)
+    torch.cuda.empty_cache()
+    numbers["hier"] = {"steady_step_s": [r["seconds"] for r in hist[1:]],
+                       "peak_gib": peak / 2 ** 30}
+    log(f"{label}: {HIER_LINE}; steady step seconds "
+        f"{numbers['hier']['steady_step_s']}, peak memory "
+        f"{peak / 2**30:.2f} GiB; card {power}")
+    counts["hier_h2"], numbers["hier_h2"] = hier_kernels_vs_plain(
+        torch, power)
+    label = "H3 one group (the training phase's flags, --hier g=11)"
+    counts["hier_one_group"], _, hist3, _, params3 = train_phase(
+        torch, label, HIER_ONE_GROUP_ARGS, K1_K2, keep_params=True)
+    same_run(torch, label, hist3, params3, train_hist, train_params)
+    log(f"{label}: records and parameters bit for bit the training "
+        f"phase's")
+    del params3
+    torch.cuda.empty_cache()
+    label = "H4 hier streaming global"
+    counts["hier_stream_global"], _, hist4, _, params4 = train_phase(
+        torch, label, HIER_ARGS + ["--trainer", "stream_global"],
+        HIER_K1_K2, keep_params=True, theta=THETA_HIER)
+    numbers["hier_stream_global"] = {
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "steady_step_s": [r["seconds"] for r in hist4[1:]]}
+    same_run(torch, label, hist4, params4, hist, params)
+    log(f"{label}: bit for bit H1; peak "
+        f"{numbers['hier_stream_global']['peak_gib']:.2f} GiB")
+    del params4, params
+    torch.cuda.empty_cache()
+    counts["hier_stream_block"], *_ = train_phase(
+        torch, "H4 hier streaming block", HIER_ARGS + [
+            "--trainer", "stream_block"], HIER_K1_K2, theta=THETA_HIER)
+    label = "H5 hier wire (qsgd:bits=8, scale_poison, 1 layer)"
+    counts["hier_wire"], _, hist5, text5, params5 = train_phase(
+        torch, label, HIER_WIRE_ARGS, HIER_K5_K2, keep_params=True,
+        theta=THETA_HIER)
+    lines = [ln for ln in text5.splitlines() if ln.startswith(
+        "[train] wire[")]
+    check(len(lines) == 2 and "workers_to_leaders" in lines[0] and
+          "leaders_to_server" in lines[1], f"{label}: wire lines {lines}")
+    per_worker = [int(ln.split(" x ")[1].split(" B")[0].replace(",", ""))
+                  for ln in lines]
+    check(lines[0].split(": ")[1].startswith(f"{HIER_N} x ") and
+          lines[1].split(": ")[1].startswith("3 x ") and
+          per_worker[0] == per_worker[1], f"{label}: wire lines {lines}")
+    for i, rec in enumerate(hist5):
+        check(rec["leader_wire_bytes"] == 3 * rec["wire_bytes_per_worker"]
+              == 3 * per_worker[0], f"{label} step {i}: leader bytes "
+              f"{rec['leader_wire_bytes']}, a worker's "
+              f"{rec['wire_bytes_per_worker']}")
+    params5 = to_host(params5)
+    torch.cuda.empty_cache()
+    label5 = label + ", stream_global"
+    counts["hier_wire_stream"], _, hist5s, _, params5s = train_phase(
+        torch, label5, HIER_WIRE_ARGS + ["--trainer", "stream_global"],
+        HIER_K5_K2, keep_params=True, theta=THETA_HIER)
+    same_run(torch, label5, hist5s, params5s, hist5, params5)
+    log(f"{label}: {lines}; leaders' bytes 3 x a worker's "
+        f"({3 * per_worker[0]:,}); streaming bit for bit stacked")
+    del params5, params5s
+    torch.cuda.empty_cache()
+    numbers["hier_wire"] = {
+        "k5_group_slices_max_abs_err": hier_wire_kernels_vs_plain(
+            torch, worst_k5)}
+    label = "H6 hier whisper (whisper-tiny whole, n = 49, f = 3, g = 7)"
+    counts["hier_whisper"], shapes, hist6, text6, _ = train_phase(
+        torch, label, HIER_WHISPER_ARGS, HIER_WHISPER_K1_K2,
+        theta=THETA_HIER)
+    check(len(shapes) == WHISPER_LEAVES, f"{label}: {len(shapes)} leaves")
+    check(HIER_WHISPER_LINE in text6.splitlines(),
+          f"{label}: no line {HIER_WHISPER_LINE!r}")
+    numbers["hier_whisper"] = {
+        "steady_step_s": [r["seconds"] for r in hist6[1:]],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    grads = stack_of(torch, HIER_WHISPER_ARGS, HIER_WHISPER_N,
+                     HIER_WHISPER_F)
+    numbers["hier_whisper"].update(flat_against_hier(
+        torch, "H6 flat vs hier (whisper-tiny, n = 49)", grads,
+        HIER_WHISPER_N, HIER_WHISPER_F, THETA_WHISPER_FLAT, power))
+    del grads
+    torch.cuda.empty_cache()
+    log(f"hier phases: {time.perf_counter() - t0:.1f}s; "
+        f"{json.dumps(numbers)}; card {power}")
+    return counts, numbers
+
+
 def network_exchanges(slots):
     """Compare-exchanges of select_tile.cuh's Batcher odd-even merge sort
     on `slots` slots (its Network<N>::size())."""
@@ -3488,12 +3889,15 @@ def log_profile(torch, prof, label, wall_ms, top):
     # K1's (and K5's, K6's) stats_tile kernels and K2's
     ours = sum(v[0] for k, v in per_kernel.items()
                if "stats_tile::" in k or "fused_select" in k)
+    launches = sum(v[1] for v in per_kernel.values())
     log(f"profile {label} {wall_ms:.1f} ms wall under the profiler, "
         f"kernels busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(v[1] for v in per_kernel.values())} kernel launches; the "
-        f"statistics' and K2's kernels {ours:.1f} ms")
+        f"{launches} kernel launches; the statistics' and K2's kernels "
+        f"{ours:.1f} ms")
     for name, (ms, count) in rows[:top]:
         log(f"  {ms:10.3f} ms {count:6d}x  {name[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ours_ms": ours,
+            "launches": launches}
 
 
 def profile_two_step(torch, leaves, plan):
@@ -3550,7 +3954,10 @@ def main():
         counts_mesh_wire, wire_hist, wire_params = mesh_wire_training(torch)
         counts_stream = streaming_training(torch, power, history, params,
                                            peak, wire_hist, wire_params)
-        del params, wire_params
+        del wire_params
+        counts_hier, hier_numbers = hier_training(torch, power, history,
+                                                  params, worst_k5)
+        del params
         real_wire_k5(torch, worst_k5)
         worst_k3 = k3_vs_plain(torch)
         t0 = time.perf_counter()
@@ -3564,6 +3971,7 @@ def main():
         counts_phase["mesh_training"] = counts_mesh_train
         counts_phase["mesh_wire"] = counts_mesh_wire
         counts_phase.update(counts_stream)
+        counts_phase.update(counts_hier)
         counts_mesh = mesh_statistics(torch)
         counts_tiles, tile_ms, tile_bound, tile_bound_by = mesh_tiles(torch)
         t0 = time.perf_counter()
@@ -3675,18 +4083,30 @@ def main():
          # the launches of each variant: the main path's theta = 5 kernel,
          # and the counted one (theta > 32) of whisper at n = 40
          "variant_launches": {"theta=5": counts["fused_select"],
+                              "theta=3": counts_hier["hier"][
+                                  "fused_select"],
                               "theta>32": counts_ed["whisper_wide"][
                                   "fused_select"]},
          "theta>32": wide_entry(wide, "k2", counts_ed["whisper_wide"][
-             "fused_select"])},
+             "fused_select"]),
+         # stats + plan + apply, flat against grouped (g = 7), on H1's
+         # and H6's stacks
+         "hier_ms": {k: hier_numbers[k] for k in ("hier_h2",
+                                                  "hier_whisper")}},
         {"name": "dequant_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/dequant_stats.cu",
          "replaces": "src/repro/kernels/dequant_stats.py:90",
          "launches": counts_wire["dequant_stats"],
          "launches_by_phase": {
              "wire_a": counts_wire["dequant_stats"],
-             "stream_wire": counts_stream["stream_wire"]["dequant_stats"]},
+             "stream_wire": counts_stream["stream_wire"]["dequant_stats"],
+             "hier_wire": counts_hier["hier_wire"]["dequant_stats"],
+             "hier_wire_stream":
+                 counts_hier["hier_wire_stream"]["dequant_stats"]},
          "max_abs_err": worst_k5["max_abs"],
+         # over every group's slice of H5's payload (in max_abs_err too)
+         "hier_wire_max_abs_err": hier_numbers["hier_wire"][
+             "k5_group_slices_max_abs_err"],
          "ms": tot["k5_int8"], "plain_ms": tot["k5_plain_int8"],
          "bound_ms": tot["k5_int8_bound"],
          "bound_by": tot["k5_int8_bound_by"], "library_ms": None},
@@ -3790,6 +4210,8 @@ def main():
     log(f"decoder families: training {json.dumps(fam_train)}; serving "
         f"{json.dumps({k: v for k, v in fam_serve.items() if k != 'decode_consistency'})}; "
         f"decode consistency {fam_serve['decode_consistency']}; card {power}")
+    log(f"hierarchical (repro_torch.hier): {json.dumps(hier_numbers)}; "
+        f"card {power}")
     log(f"encoder-decoder (whisper-tiny): training {json.dumps(ed_train)}; "
         f"serving {json.dumps(ed_serve)}; the counted variants at n = "
         f"{WIDE_N} {json.dumps(wide)}; card {power}")

@@ -5,7 +5,8 @@
 * ``codecs``    — encode/decode pairs over stacked gradient trees,
   addressed by spec string (``get_codec("qsgd:bits=8")``), with an
   optional error-feedback residual;
-* ``transport`` — exact per-worker byte accounting (:class:`WireStats`).
+* ``transport`` — exact per-worker byte accounting (:class:`WireStats`,
+  per hierarchy level: ``hier_wire_stats``).
 
 Statistics on a wire container run on the payloads through the K5 kernel
 (``kernels.ops.dequant_stats``); ``core.api`` accepts containers.
@@ -23,5 +24,6 @@ from repro_torch.comm.codecs import (  # noqa: F401
 from repro_torch.comm.transport import (  # noqa: F401
     WireStats,
     gather_stats,
+    hier_wire_stats,
     wire_stats,
 )

@@ -3,7 +3,9 @@
 The wire is accounted, not transmitted: every quantity here is a Python
 int derived from leaf shapes and the codec's exact ``leaf_wire_bytes``.
 The model is the gather the trainers imply: each of the n workers ships
-its encoded gradient rows to the aggregator in ``chunk_bytes`` chunks.
+its encoded gradient rows to the aggregator in ``chunk_bytes`` chunks;
+under a grouped aggregation, to its group leader, and the leaders ship
+their group aggregates on (:func:`hier_wire_stats`).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 from repro_torch.comm.codecs import Codec, get_codec
 from repro_torch.comm.container import EncodedGrads, _numel
+from repro_torch.core.theory import group_sizes
 from repro_torch.tree import tree_leaves
 
 Tree = Any
@@ -35,6 +38,9 @@ class WireStats:
     bytes_per_worker: int
     fp32_bytes_per_worker: int
     chunk_bytes: int
+    #: the hierarchy level of the gather (``"workers_to_leaders"`` /
+    #: ``"leaders_to_server"``, :func:`hier_wire_stats`); None when flat
+    level: Optional[str] = None
 
     @property
     def total_bytes(self) -> int:
@@ -49,7 +55,7 @@ class WireStats:
         return -(-self.bytes_per_worker // self.chunk_bytes)
 
     def to_json(self) -> Dict[str, Any]:
-        return {
+        out = {
             "codec": self.codec,
             "n_workers": self.n,
             "bytes_per_worker": self.bytes_per_worker,
@@ -59,6 +65,9 @@ class WireStats:
             "chunk_bytes": self.chunk_bytes,
             "chunks_per_worker": self.chunks_per_worker,
         }
+        if self.level is not None:
+            out["level"] = self.level
+        return out
 
 
 def _shapes_of(grads_like: Tree, n: Optional[int]
@@ -98,3 +107,22 @@ def gather_stats(enc: EncodedGrads, *,
                      bytes_per_worker=enc.bytes_per_worker,
                      fp32_bytes_per_worker=fp32 // enc.n,
                      chunk_bytes=chunk_bytes)
+
+
+def hier_wire_stats(codec: Union[str, Codec], grads_like: Tree, *,
+                    n: int, g: int,
+                    chunk_bytes: int = DEFAULT_CHUNK_BYTES
+                    ) -> Tuple[WireStats, WireStats]:
+    """Per-level byte accounting of a two-level grouped gather, for the
+    parameter tree ``grads_like`` (shapes only): ``workers_to_leaders``,
+    all ``n`` workers to their group leaders, and ``leaders_to_server``,
+    the ``ceil(n/g)`` leaders' group aggregates, re-encoded with the same
+    codec, to the server."""
+    n_groups = len(group_sizes(n, g))
+    inner = dataclasses.replace(
+        wire_stats(codec, grads_like, n=n, chunk_bytes=chunk_bytes),
+        level="workers_to_leaders")
+    outer = dataclasses.replace(
+        wire_stats(codec, grads_like, n=n_groups, chunk_bytes=chunk_bytes),
+        level="leaders_to_server")
+    return inner, outer

@@ -234,20 +234,25 @@ class RobustConfig:
 
     ``use_kernels`` routes the statistics and the multi-Bulyan apply
     through the hand-written CUDA kernels for CUDA tensors (their plain
-    PyTorch versions for CPU tensors).
+    PyTorch versions for CPU tensors).  ``grouped`` marks a hierarchical
+    aggregation (``repro_torch.hier``): its per-level budget check
+    (``core.theory.split_f_budget``) owns feasibility, so the flat rule's
+    ``min_n`` is not checked (a grouped (n, f) may be flat-infeasible).
     """
 
     n_workers: int = 16
     f: int = 3
     gar: str = "multi_bulyan"
     use_kernels: bool = True
+    grouped: bool = False
 
     def __post_init__(self):
         self.validate()
 
     def validate(self) -> "RobustConfig":
         """Enforce the paper's resilience preconditions at construction:
-        Krum-family rules need n >= 2f+3, Bulyan-family n >= 4f+3."""
+        Krum-family rules need n >= 2f+3, Bulyan-family n >= 4f+3 (not
+        checked when ``grouped``)."""
         if self.n_workers <= 0:
             raise ValueError(f"n_workers must be positive, got {self.n_workers}")
         if self.f < 0:
@@ -261,5 +266,6 @@ class RobustConfig:
             rule = get_aggregator(self.gar)
         except KeyError as e:
             raise ValueError(e.args[0]) from None
-        rule.validate(self.n_workers, self.f)
+        if not self.grouped:
+            rule.validate(self.n_workers, self.f)
         return self

@@ -23,6 +23,16 @@ stack.
   and apply.  Selection is per block, so a byzantine worker can win in one
   block and lose in another.
 
+With ``hier`` (a ``repro_torch.hier.GroupConfig``) both scopes aggregate
+in two levels.  Global scope: pass 1 adds one raw (g_k, g_k) total per
+group, leaf by leaf in the whole tree's order (each group's rows a view
+of the leaf, or its slice of the leaf's wire container), never an (n, n)
+one; pass 2 applies each group's plan to its rows and keeps only the
+block's ``(n_groups, ...)`` stack of group aggregates; the outer level
+(the leaders→server re-encode under a codec, stats, plan, apply) runs
+once over those.  That is the stacked ``hier`` step bit for bit, on every
+wire.  Block scope runs the whole ``hier.hier_aggregate_tree`` per block.
+
 Every random draw uses the leaf's index in the whole tree (the
 ``leaf_offset`` of ``inject_byzantine``, ``Codec.encode`` and
 ``inject_wire``), so the attack, the codec and the wire attack draw what
@@ -45,6 +55,8 @@ from repro_torch.dist.trainer import (
     ENCODE_STREAM, _derive_mesh_ctx, _resolve_codec, as_trainer_state,
     honest_dev_accumulate, honest_dev_finalize, inject_byzantine,
     inject_wire, per_worker_grads)
+from repro_torch.hier import aggregate as HA
+from repro_torch.hier.plan import HierPlan
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -65,7 +77,7 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                               coord_chunk: int = 0, telemetry: bool = False,
                               transforms: Sequence[api.Transform] = (),
                               shard_map_mesh=None, shard_map_axes=None,
-                              spmd: Optional[bool] = None):
+                              spmd: Optional[bool] = None, hier=None):
     """Build the streaming-trainer step, ``(params, state, batch, seed) ->
     (params, state, metrics)`` as the stacked trainer's.
 
@@ -84,6 +96,11 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
     and the apply take each block's ``core.api.row_block`` (K6, or K7 off
     the wire, per leaf in pass 1; K2 on the rank's column tile in pass 2),
     every rank reaching the collectives in the same leaf order.
+
+    ``hier`` (a ``repro_torch.hier.GroupConfig``) aggregates in two levels
+    (the module docstring): per group then over the group aggregates, with
+    the budget of ``hier.budget(rcfg.n_workers, rcfg.f)`` checked when the
+    step is built.  Not composable with a mesh (JAX's refusal).
 
     The step takes and returns a ``TrainerState`` (a bare ``OptState`` is
     coerced); only its ``opt`` slot is live, and a state carrying
@@ -122,6 +139,17 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
         mesh_ctx=mesh_ctx)
     # telemetry wants the score spectrum even for distance-free rules
     needs_stats = backend.aggregator.needs_dists or telemetry
+    budget = inner = None
+    if hier is not None:
+        if mesh_ctx is not None:
+            raise NotImplementedError(
+                "hier= is not composable with the mesh-native (spmd) "
+                "aggregation path yet; drop shard_map_mesh/spmd")
+        # checked once: every block's stack has rcfg.n_workers rows
+        budget = hier.budget(rcfg.n_workers, rcfg.f)
+        inner = api.get_aggregator(hier.rule)
+        needs_stats = inner.needs_dists or telemetry
+    kw = dict(coord_chunk=coord_chunk, use_kernels=rcfg.use_kernels)
 
     def rows(g):
         """What the backend takes: this rank's row block on a mesh."""
@@ -162,20 +190,33 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                                       leaf_offset=offsets[k])
                 return losses, codec_obj.decode(enc, out=g), enc
 
-        def add_block(total, k):
-            """``total`` plus block k's raw (n, n) contributions, leaf by
-            leaf (a container's leaf off its payload); the block's stack
-            and container die on return."""
+        def add_block(totals, k, bounds=None):
+            """``totals`` plus block k's raw contributions, leaf by leaf (a
+            container's leaf off its payload): to the one (n, n) total,
+            or with ``bounds`` to each group's (g_k, g_k) total from the
+            group's rows of the leaf.  The block's stack and container
+            die on return."""
             _, g, enc = block_grads(k)
             units = tree_leaves(g) if enc is None else \
                 CC.leaf_containers(enc)
             del g, enc
             with torch.no_grad():
                 for u in units:
-                    total = total + api.raw_pairwise_stats(
-                        rows(u), use_kernels=rcfg.use_kernels,
-                        mesh_ctx=mesh_ctx)[0]
-            return total
+                    if bounds is None:
+                        totals = totals + api.raw_pairwise_stats(
+                            rows(u), use_kernels=rcfg.use_kernels,
+                            mesh_ctx=mesh_ctx)[0]
+                        continue
+                    for gi, (s, e) in enumerate(bounds):
+                        part = u[s:e] if isinstance(u, torch.Tensor) \
+                            else CC.slice_workers(u, s, e)
+                        totals[gi] = totals[gi] + api.raw_pairwise_stats(
+                            part, use_kernels=rcfg.use_kernels)[0]
+            return totals
+
+        if hier is not None and scope == "global":
+            return hier_global_step(params, state, seed, blocks, keys,
+                                    block_grads, add_block)
 
         plan = global_diag = None
         if scope == "global" and needs_stats:
@@ -192,7 +233,7 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
             plan = backend.plan(stats)
             if telemetry:
                 global_diag = plan.diagnostics(stats)
-        elif not needs_stats:
+        elif hier is None and not needs_stats:
             # a distance-free rule's plan does not depend on the block
             plan = backend.plan(api.AggStats(n=rcfg.n_workers, f=rcfg.f))
 
@@ -200,12 +241,30 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
         # the step's
         agg, losses, diags = {}, None, []
         dev_sq = ref_sq = 0.0
-        wire_total = 0
+        wire_total = leader_total = 0
         for k in blocks:
             l_k, g, enc = block_grads(k)
             losses = l_k if losses is None else losses
             del l_k
             with torch.no_grad():
+                if hier is not None:
+                    # block scope: the whole two-level pipeline per block
+                    agg[k], hplan_k, hinfo_k = HA.hier_aggregate_tree(
+                        g if enc is None else enc, rcfg.f, hier,
+                        codec=codec_obj, seed=seed,
+                        needs_dists=True if telemetry else None,
+                        decoded=None if enc is None else g, **kw)
+                    leader_total += hinfo_k["leader_wire_bytes"]
+                    if enc is not None:
+                        wire_total += enc.wire_bytes
+                    del enc
+                    if telemetry:
+                        diags.append(hplan_k.diagnostics(
+                            hinfo_k["inner_stats"]))
+                        dev_sq, ref_sq = honest_dev_accumulate(
+                            dev_sq, ref_sq, agg[k], g, f_eff)
+                    del g
+                    continue
                 block_plan = plan
                 if block_plan is None:
                     # block scope: the block's own statistics (off the
@@ -223,7 +282,76 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                         dev_sq, ref_sq, agg[k], g, f_eff)
             del g
         agg = agg[None] if keys is None else agg
+        return finish(params, state, agg, losses, global_diag, diags,
+                      dev_sq, ref_sq, wire_total, leader_total)
 
+    def hier_global_step(params, state, seed, blocks, keys, block_grads,
+                         add_block):
+        """Global scope under ``hier``: pass 1 (per-group totals), the
+        inner plans, pass 2 (each block's stack of group aggregates), the
+        outer level once; ``block_grads`` and ``add_block`` are the
+        step's."""
+        bounds = budget.bounds()
+        dev = tree_leaves(params)[0].device
+        if needs_stats:
+            totals = [torch.zeros((e - s, e - s), dtype=torch.float32,
+                                  device=dev) for s, e in bounds]
+            for k in blocks:
+                totals = add_block(totals, k, bounds)
+            inner_stats = tuple(
+                api.AggStats(n=e - s, f=budget.f_inner,
+                             dists=api.finalize_dists(t))
+                for (s, e), t in zip(bounds, totals))
+            del totals
+        else:
+            inner_stats = tuple(api.AggStats(n=e - s, f=budget.f_inner)
+                                for s, e in bounds)
+        plans = []
+        for st in inner_stats:
+            inner.validate(st.n, st.f)
+            plans.append(inner.plan(st))
+        # pass 2: only each block's (n_groups, ...) stack survives it
+        inter, honest, losses = {}, {}, None
+        wire_total = 0
+        for k in blocks:
+            l_k, g, enc = block_grads(k)
+            losses = l_k if losses is None else losses
+            with torch.no_grad():
+                if enc is not None:
+                    wire_total += enc.wire_bytes
+                del enc
+                inter[k] = HA.stack_groups([
+                    inner.apply(p, HA.slice_rows(g, s, e), **kw)
+                    for p, (s, e) in zip(plans, bounds)])
+                if telemetry:
+                    # the honest means, d-sized, for the deviation once
+                    # the outer aggregate exists
+                    honest[k] = tree_map(
+                        lambda x: torch.mean(x[f_eff:].float(), dim=0), g)
+            del g, l_k
+        inter = inter[None] if keys is None else inter
+        leader_total, outer_plan = 0, None
+        with torch.no_grad():
+            if budget.n_groups == 1:
+                agg = tree_map(lambda x: x[0], inter)
+            else:
+                agg, outer_plan, _, leader_total = HA.outer_aggregate(
+                    inter, budget, hier, codec=codec_obj, seed=seed, **kw)
+            del inter
+            global_diag, dev_sq, ref_sq = None, 0.0, 0.0
+            if telemetry:
+                global_diag = HierPlan.build(
+                    budget, hier, plans, outer_plan).diagnostics(inner_stats)
+                hm = honest[None] if keys is None else honest
+                for a, m in zip(tree_leaves(agg), tree_leaves(hm)):
+                    dev_sq = dev_sq + torch.sum((a.float() - m) ** 2)
+                    ref_sq = ref_sq + torch.sum(m ** 2)
+        return finish(params, state, agg, losses, global_diag, [], dev_sq,
+                      ref_sq, wire_total, leader_total)
+
+    def finish(params, state, agg, losses, global_diag, diags, dev_sq,
+               ref_sq, wire_total, leader_total):
+        """The optimizer update and the metrics of a step."""
         with torch.no_grad():
             lr = lr_fn(state.opt.step)
             new_params, new_opt = opt.update(agg, state.opt, params, lr)
@@ -246,6 +374,8 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                 if codec_obj is not None:
                     diag["wire_bytes_per_worker"] = \
                         wire_total // rcfg.n_workers
+                if hier is not None and codec_obj is not None:
+                    diag["leader_wire_bytes"] = leader_total
                 metrics["telemetry"] = diag
         new_state = dataclasses.replace(state, opt=new_opt)
         return tree_map(lambda p: p.detach(), new_params), new_state, metrics

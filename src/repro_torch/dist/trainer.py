@@ -24,15 +24,18 @@ One train step:
    the two-step substrate, one K3 launch per column slice.  On a mesh
    (``shard_map_mesh``) the three run mesh-native on this rank's row
    block: K6 (K7 off the wire) per leaf for the statistics, K2 per leaf
-   on the rank's column tile for the apply;
+   on the rank's column tile for the apply.  With ``hier`` the grouped
+   pipeline (``repro_torch.hier``) replaces them: the same launches per
+   group on the group's rows, then per leaf once more over the stack of
+   group aggregates where the outer rule needs them;
 6. one optimizer update from the aggregated gradient.
 
 The step has signature ``(params, state, batch, seed) -> (params, state,
 metrics)``; ``state`` is a :class:`TrainerState` (``opt``; ``tstates``,
 one entry per transform; ``astate``, the adaptive attack's feedback
 state; ``cres``, the error-feedback residual, under an ``ef=1`` codec).
-The hierarchical and observability options of the JAX trainer are not
-ported yet.  The streaming trainer (``dist.streaming``) builds on the
+The observability option of the JAX trainer is not ported yet.  The
+streaming trainer (``dist.streaming``) builds on the
 pieces here: :func:`per_worker_grads` of one block, the ``leaf_offset``
 of the injections, and the honest-deviation helpers.
 """
@@ -49,6 +52,7 @@ from repro_torch import models as MD
 from repro_torch.configs.base import ArchConfig, RobustConfig
 from repro_torch.core import api
 from repro_torch.core import attacks as ATK
+from repro_torch.hier import hier_aggregate_tree
 from repro_torch.optim.optimizers import OptState, Optimizer
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -281,7 +285,7 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     codec=None, coord_chunk: int = 0,
                     telemetry: bool = False, shard_map_mesh=None,
                     shard_map_axes: Optional[Sequence[str]] = None,
-                    spmd: Optional[bool] = None):
+                    spmd: Optional[bool] = None, hier=None):
     """Build the stacked-trainer step.
 
     ``attack`` is a spec string (``core.attacks.get_attack``, or a wire
@@ -323,6 +327,19 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     (``core.api.AggregatorBackend`` with ``mesh_ctx``), every rank getting
     the whole aggregate.  So every attack, the adaptive state, the
     ``ef=1`` residual and the transforms compose with the mesh unchanged.
+
+    ``hier`` (a ``repro_torch.hier.GroupConfig``) replaces stats → plan →
+    apply with the two-level grouped pipeline
+    (``hier.hier_aggregate_tree``): robust-aggregate within groups of
+    ``hier.g`` workers, then over the group aggregates, with per-level f
+    budgets from ``core.theory.split_f_budget``.  The statistics run on
+    the wire container's group slices (unless a transform rewrote the
+    stack) and the applies on row views of the decoded stack; under a
+    codec the group aggregates are re-encoded for the leaders→server hop
+    (seed stream ``hier.LEADER_ENCODE_STREAM``).  The adaptive state
+    updates from the plan's two-level selection weights; telemetry gains
+    ``group_selection`` and, under a codec, ``leader_wire_bytes``.  Not
+    composable with a mesh or an error-feedback codec (JAX's refusals).
     """
     rcfg.validate()
     transforms = tuple(transforms)
@@ -348,6 +365,16 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     backend = api.AggregatorBackend.for_config(
         rcfg, coord_chunk=coord_chunk, needs_dists=telemetry,
         mesh_ctx=mesh_ctx)
+    needs_dists = backend.aggregator.needs_dists or telemetry
+    if hier is not None:
+        if mesh_ctx is not None:
+            raise NotImplementedError(
+                "hier= is not composable with the mesh-native (spmd) "
+                "aggregation path yet; drop shard_map_mesh/spmd")
+        if codec_obj is not None and codec_obj.stateful:
+            raise ValueError(
+                "hier= does not support error-feedback codecs (the "
+                "leaders→server hop has no residual slot); drop ef=1")
 
     def rows(g):
         """What the backend takes: this rank's row block on a mesh."""
@@ -387,9 +414,17 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
             # transform rewrote the decoded stack
             stats_src = enc if (enc is not None and not transforms) \
                 else grads
-            stats = backend.stats(rows(stats_src))
-            plan = backend.plan(stats)
-            agg = backend.apply(plan, rows(grads))
+            if hier is not None:
+                agg, plan, hinfo = hier_aggregate_tree(
+                    stats_src, rcfg.f, hier, codec=codec_obj, seed=seed,
+                    coord_chunk=coord_chunk, use_kernels=rcfg.use_kernels,
+                    needs_dists=needs_dists,
+                    decoded=grads if stats_src is enc else None)
+                stats = hinfo["inner_stats"]
+            else:
+                stats = backend.stats(rows(stats_src))
+                plan = backend.plan(stats)
+                agg = backend.apply(plan, rows(grads))
             if adaptive is not None:
                 astate = adaptive.update(astate, plan.selection_weights())
             lr = lr_fn(state.opt.step)
@@ -407,6 +442,8 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                 diag["honest_dev"] = _honest_mean_dev(agg, grads, f_eff)
                 if enc is not None:
                     diag["wire_bytes_per_worker"] = enc.bytes_per_worker
+                if hier is not None and codec_obj is not None:
+                    diag["leader_wire_bytes"] = hinfo["leader_wire_bytes"]
                 metrics["telemetry"] = diag
         new_state = dataclasses.replace(state, opt=new_opt, tstates=tstates,
                                         astate=astate, cres=cres)

@@ -16,7 +16,9 @@ world of one rank (an in-process store), or every rank of a
 prints and writes ``--ckpt-dir``.  ``--trainer stream_block|stream_global``
 takes the streaming trainer (``dist.streaming``), which holds one
 parameter block's gradient stack at a time; ``stream_global`` gives the
-stacked trainer's step bit for bit.
+stacked trainer's step bit for bit.  ``--hier g=7`` aggregates in two
+levels (``repro_torch.hier``) on either trainer: within groups of at most
+7 workers, then over the group aggregates.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
@@ -34,6 +36,8 @@ Usage:
       --arch jamba-1.5-large-398b --steps 2 --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
       --steps 3 --workers 11 --f 2 --attack inf
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --layers 2 --steps 3 --workers 21 --f 1 --hier g=7 --attack inf
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen2-1.5b --layers 2 --steps 3 --mesh host
 """
@@ -50,13 +54,15 @@ import torch.distributed as dist
 
 from repro_torch import models as MD
 from repro_torch.checkpoint import save
-from repro_torch.comm import wire_stats
+from repro_torch.comm import hier_wire_stats, wire_stats
 from repro_torch.configs import ARCH_NAMES, ArchConfig, RobustConfig
 from repro_torch.core.attacks import fold_seed
+from repro_torch.core.theory import FBudget
 from repro_torch.data import lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.dist import (init_train_state, make_streaming_train_step,
                               make_train_step, split_workers)
+from repro_torch.hier import GroupConfig
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.tree import tree_leaves
@@ -88,6 +94,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "stream_*: one parameter block's stack at a time, "
                          "with one plan per block (block) or one plan from "
                          "a first pass over every block (global)")
+    ap.add_argument("--hier", default=None, metavar="SPEC",
+                    help="two-level grouped aggregation (repro_torch.hier): "
+                         "'g=64' groups the workers into ceil(n/64) "
+                         "groups, robust-aggregates within each, then "
+                         "across the group outputs. Optional keys: rule=, "
+                         "outer_rule=, f_inner=, f_outer=, enforce=0")
     ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="route stats + bulyan apply through the CUDA "
@@ -110,23 +122,38 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def robust_config(args: argparse.Namespace) -> RobustConfig:
-    """The aggregation of the flags (validates n, f and the GAR)."""
+    """The aggregation of the flags (validates n, f and the GAR; under
+    ``--hier`` the per-level budget check owns feasibility)."""
     return RobustConfig(n_workers=args.workers, f=args.f, gar=args.gar,
-                        use_kernels=args.use_kernels)
+                        use_kernels=args.use_kernels,
+                        grouped=args.hier is not None)
+
+
+def hier_config(args: argparse.Namespace
+                ) -> Tuple[Optional[GroupConfig], Optional[FBudget]]:
+    """The ``--hier`` spec's :class:`GroupConfig` (its inner rule
+    defaults to ``--gar``) and its checked budget for ``--workers`` /
+    ``--f``; (None, None) without the flag."""
+    if args.hier is None:
+        return None, None
+    hier = GroupConfig.from_spec(args.hier, rule=args.gar)
+    return hier, hier.budget(args.workers, args.f)
 
 
 def make_trainer(args: argparse.Namespace, cfg: ArchConfig,
                  rcfg: RobustConfig, lr_fn: Callable[[Any], Any],
-                 mesh=None) -> Tuple[Any, Callable]:
-    """The optimizer and the step function of the flags' trainer.  Checks
-    the attack and codec specs (a wire attack needs a codec; the
-    streaming trainer refuses adaptive attacks and ef=1) before any model
-    is built."""
+                 mesh=None, hier: Optional[GroupConfig] = None
+                 ) -> Tuple[Any, Callable]:
+    """The optimizer and the step function of the flags' trainer (``hier``
+    the ``--hier`` config of :func:`hier_config`).  Checks the attack and
+    codec specs (a wire attack needs a codec; the streaming trainer
+    refuses adaptive attacks and ef=1) before any model is built."""
     opt = make_optimizer(args.optimizer,
                          **({"momentum": 0.9} if args.optimizer == "sgd"
                             else {}))
     kw = dict(chunk_q=min(args.seq, 512), attack=args.attack,
-              codec=args.codec, telemetry=True, shard_map_mesh=mesh)
+              codec=args.codec, telemetry=True, shard_map_mesh=mesh,
+              hier=hier)
     if args.trainer == "stacked":
         return opt, make_train_step(cfg, rcfg, opt, lr_fn, **kw)
     return opt, make_streaming_train_step(
@@ -159,7 +186,9 @@ def run(argv: Optional[Sequence[str]] = None
     """Train as the flags say.  Returns the final parameters and one record
     per step (``loss``, ``loss_per_worker``, ``byz_mass``, ``selection``,
     the plan's (n,) selection weights, ``honest_dev``, ``agg_grad_norm``,
-    ``lr``, ``seconds``; under a codec also ``wire_bytes_per_worker`` and,
+    ``lr``, ``seconds``; under ``--hier`` also ``group_selection``, the
+    outer level's (n_groups,) mass; under a codec also
+    ``wire_bytes_per_worker`` (with ``--hier`` ``leader_wire_bytes``) and,
     with ``ef=1``, ``residual_max_abs``, the largest magnitude in the
     error-feedback residual after the step; under an adaptive attack also
     ``astate``, the attack's state after the step as host floats and
@@ -173,22 +202,24 @@ def run(argv: Optional[Sequence[str]] = None
         raise SystemExit("--per-worker-batch must be positive")
     if cfg.is_encdec and args.trainer != "stacked":
         raise SystemExit("enc-dec supports only the stacked trainer")
-    # validates (n, f, gar) before anything is built
+    # validates (n, f, gar) and the --hier budget before anything is built
     rcfg = robust_config(args)
+    hier, budget = hier_config(args)
     device = resolve_device(args.device)
     started = args.mesh == "host" and not dist.is_initialized()
     try:
         mesh = make_host_mesh(device) if args.mesh == "host" else None
-        return _train(args, cfg, rcfg, device, mesh)
+        return _train(args, cfg, rcfg, device, mesh, hier, budget)
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
 
 
 def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
-           device: torch.device, mesh) -> Tuple[Any, List[Dict[str, Any]]]:
-    """:func:`run` once the flags are checked and the mesh (or None) is
-    up."""
+           device: torch.device, mesh, hier: Optional[GroupConfig],
+           budget: Optional[FBudget]) -> Tuple[Any, List[Dict[str, Any]]]:
+    """:func:`run` once the flags are checked (``hier`` and ``budget`` as
+    :func:`hier_config` gives them) and the mesh (or None) is up."""
     lead = mesh is None or dist.get_rank() == 0
 
     def say(msg: str) -> None:
@@ -197,7 +228,12 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
 
     lr_fn = warmup_cosine(args.lr, warmup=max(args.steps // 20, 1),
                           total_steps=args.steps)
-    opt, step_fn = make_trainer(args, cfg, rcfg, lr_fn, mesh)
+    opt, step_fn = make_trainer(args, cfg, rcfg, lr_fn, mesh, hier)
+    if hier is not None:
+        say(f"[train] hier: {budget.n_groups} groups "
+            f"{list(budget.group_sizes)} f_inner={budget.f_inner} "
+            f"f_outer={budget.f_outer} inner={hier.rule} "
+            f"outer={hier.resolve_outer_rule(budget)}")
     params = MD.init_model(cfg, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     say(f"[train] arch={cfg.name} layers={cfg.n_layers} "
@@ -208,7 +244,13 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
         shape = dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
         say(f"[train] mesh={args.mesh} shape={shape} (worker axis sharded "
             f"over data, d over model)")
-    if args.codec:
+    if args.codec and hier is not None:
+        for ws in hier_wire_stats(args.codec, params, n=args.workers,
+                                  g=hier.g):
+            say(f"[train] wire[{ws.level}]: {ws.n} x "
+                f"{ws.bytes_per_worker:,} B/step "
+                f"({ws.compression:.1f}x vs fp32)")
+    elif args.codec:
         ws = wire_stats(args.codec, params, n=args.workers)
         say(f"[train] wire: {ws.bytes_per_worker:,} B/worker/step "
             f"({ws.compression:.1f}x vs fp32, "
@@ -233,6 +275,10 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
                "lr": float(metrics["lr"]), "seconds": seconds}
         if "wire_bytes_per_worker" in tel:
             rec["wire_bytes_per_worker"] = tel["wire_bytes_per_worker"]
+        if "group_selection" in tel:
+            rec["group_selection"] = tel["group_selection"].tolist()
+        if "leader_wire_bytes" in tel:
+            rec["leader_wire_bytes"] = tel["leader_wire_bytes"]
         if state.astate is not None:
             rec["astate"] = {k: v.tolist() for k, v in state.astate.items()}
         if state.cres is not None:
