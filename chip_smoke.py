@@ -250,13 +250,18 @@ timing), each through its entry point at the published widths:
   ``torch.mm`` for K1 and their bounds (the ``kernels`` line's
   ``moe_leaves``), the expert stack held to the plain versions.
 
-K2 and K3 above theta = 32 (the counted variants, after phase 8): K2 at
-theta in {33, 34, 40, 64, 128}, n = theta + 6 and 256, beta in {1,
-ceil(theta / 2), theta}, d in {1, 4095, 100003}, on one-hot / uniform plans
-with ties and on a stack with NaN, +-inf, +-0 and 1e30; K3 at the same
-(theta, beta) on normal, all-tied and NaN-laden inputs: bit for bit the
-plain versions (NaN in the same places), every launch counted under
-``theta>32``.
+K2 and K3 above theta = 32 (the network variants up to 128, the counted
+ones above; after phase 8): K2 at theta in ``select_cases.WIDE_THETAS``
+(each side of every bucket boundary, 33 to 129), n = theta + 6 and 256,
+beta in {1, ceil(theta / 2), theta}, d in {1, 31, 257, 100003}, on
+one-hot / uniform plans with ties and on a stack with NaN, +-inf, +-0
+and 1e30; K3 at the same (theta, beta) on normal, all-tied and NaN-laden
+inputs: bit for bit the plain versions (NaN in the same places), every
+launch counted under its variant (``theta>32``, ``theta>128``).  Then
+both timed at each of those theta on one synthetic stack of WIDE_SWEEP_D
+columns (K2 at n = theta + 6, K3 on (theta, WIDE_SWEEP_D) inputs, beta =
+theta - 4), each held bit for bit to its plain version, beside
+``k2_bound_s`` / ``k3_bound_s`` (the ``kernels`` line's ``wide_sweep``).
 
 The encoder-decoder phases (after the decoder families, before phase 11's
 timing), whisper-tiny at its published widths and full depth (4 encoder
@@ -269,13 +274,13 @@ frames; 56,378,112 parameters in 41 leaves):
   per leaf per step (41 each), every K2 launch on the theta = 5 kernel,
   nothing else, byzantine mass 0; the first step run twice bit for bit
   and a third run traced.  Then at n = 40 (theta = 34, beta = 30), 2
-  steps: K1 and K2 once per leaf per step, every K2 launch on the counted
+  steps: K1 and K2 once per leaf per step, every K2 launch on the network
   variant, byzantine mass 0.  Then one batch's real gradients at n = 40
-  (``inf``): the fused apply (K2 41, all counted) and ``fused=False`` (K3
-  41, all counted, each held bit for bit to its plain version on the
+  (``inf``): the fused apply (K2 41, all ``theta>32``) and ``fused=False``
+  (K3 41, all ``theta>32``, each held bit for bit to its plain version on the
   g_ext / g_agr the substrate formed; every coordinate where the two
   applies differ by more than 1e-6 x max(1, |fused|) a float64
-  near-tie); both counted variants timed over the 41 leaves, each leaf
+  near-tie); both network variants timed over the 41 leaves, each leaf
   bit for bit its plain version, beside their plain versions and bounds
   (the ``theta>32`` entries of K2 and K3 in the ``kernels`` line);
 * serving through ``launch/serve.py --arch whisper-tiny`` (batch 4,
@@ -300,8 +305,10 @@ phases), kernels on, the ``inf`` attack unless a phase says otherwise:
 * H2: H1's first batch's gradients after the attack through
   ``hier_aggregate_tree`` with the kernels and with the plain versions on
   the card: every inner plan and the aggregate bit for bit the same
-  (NaN-aware); flat multi-Bulyan (n = 21, theta = 17) and the grouped
-  aggregation timed on that stack (stats + plan + apply, CUDA events,
+  (NaN-aware); flat multi-Bulyan's apply (n = 21, theta = 17) with the
+  kernels and with the plain versions on the same plan, every leaf bit
+  for bit, each K2 launch counted under theta = 17's variant; then flat
+  and the grouped aggregation timed on that stack (stats + plan + apply, CUDA events,
   median of 5) beside each one's bound (K1 and K2 of every level, each
   input read once, each output written once), each traced once (kernel
   time against wall time), not gated;
@@ -323,9 +330,11 @@ phases), kernels on, the ``inf`` attack unless a phase says otherwise:
 * H6: whisper-tiny whole at n = 49, f = 3, ``--hier g=7``, 2 steps (7
   groups of 7, f_inner = f_outer = 1, the outer level multi-Bulyan): K1
   and K2 8 per leaf per step (7 inner, 1 outer), all at theta = 3,
-  byzantine mass 0; on one batch's stack the flat n = 49 aggregation
-  (theta = 41, K2's counted variant) timed and traced against the
-  grouped one, beside their bounds, not gated.
+  byzantine mass 0; on one batch's stack the flat n = 49 apply (theta =
+  41) held as H2's, every K2 launch on the network variant; then the
+  flat aggregation timed and traced against the grouped one, beside
+  their bounds (the flat one's also on the kernels' own slots), not
+  gated.
 
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
@@ -486,13 +495,16 @@ SSM_SERVE_ARGS = with_flags(SERVE_ARGS, arch="falcon-mamba-7b")
 MOE_SERVE_LAYERS = 2
 MOE_SERVE_ARGS = with_flags(SERVE_ARGS, arch="qwen3-moe-30b-a3b") + [
     "--layers", str(MOE_SERVE_LAYERS)]
-#: K2 at theta > 32 (the counted variant) on the card tests' cases
-#: (kernels/select_cases.py) at n = theta + WIDE_N_EXTRA and 256
+#: K2 at theta > 32 (the network and counted variants) on the card tests'
+#: cases (kernels/select_cases.py) at n = theta + WIDE_N_EXTRA and 256;
+#: then K2 and K3 timed at each of those theta on WIDE_SWEEP_D columns
+#: (beta = theta - 2 f at f = 2)
 WIDE_N_EXTRA = 6
+WIDE_SWEEP_D = 1 << 22
 #: the encoder-decoder phases: whisper-tiny at its published widths and
 #: full depth (4 encoder and 4 decoder layers, 1500 frames) on the
 #: training phase's flags; then at n = 40 (theta = 34, beta = 30: every K2
-#: launch on the counted variant), 2 steps
+#: launch on the network variant, ``theta>32``), 2 steps
 WHISPER_ARGS = with_flags(TRAIN_ARGS, arch="whisper-tiny", layers=0)
 WIDE_N = 40
 THETA_WIDE = WIDE_N - 2 * F - 2
@@ -2825,27 +2837,41 @@ def moe_leaves(torch):
 
 
 # ------------------------------------------------ theta > 32 and whisper
-def wide_theta_sweep(torch):
-    """K2 and K3 at theta > 32 (the counted variants) on the card tests'
-    cases (``kernels/select_cases.py``: theta in WIDE_THETAS, beta in {1,
+def wide_theta_sweep(torch, power):
+    """K2 and K3 at theta > 32 (the network variants up to 128, the
+    counted ones above) on the card tests' cases
+    (``kernels/select_cases.py``: theta in WIDE_THETAS, beta in {1,
     ceil(theta / 2), theta}, plans and inputs with ties, NaN, +-inf, +-0
     and 1e30), K2 at n = theta + WIDE_N_EXTRA and 256: bit for bit the
-    plain versions, NaN in the same places, every launch counted under
-    ``"theta>32"``.  Returns the number of cases."""
+    plain versions, NaN in the same places, every launch counted under its
+    variant (``fused_select.variant_name``, as the launchers report it).
+    Both libraries' network buckets must be ``fused_select.NETWORK_SLOTS``
+    (each theta of 32..129 through ``wide_shape``).  Then each theta timed
+    (:func:`wide_sweep_timing`).  Returns (the number of cases, the
+    timings)."""
     from repro_torch.kernels import ops, ref, select_cases
     from repro_torch.kernels.coord_select import coord_select_cuda
-    from repro_torch.kernels.fused_select import fused_select_cuda
-    runs = [(f"K2 theta={theta} n={n}", "fused_select",
+    from repro_torch.kernels.fused_select import (MAX_WIDE_THETA,
+                                                  fused_select_cuda,
+                                                  variant_name, wide_shape)
+    for lib in ("fused_select", "coord_select"):
+        thetas = range(32, MAX_WIDE_THETA + 2)
+        got = [(wide_shape(t, lib) or {}).get("slots") for t in thetas]
+        want = [kernel_slots(t) if 32 < t <= MAX_WIDE_THETA else None
+                for t in thetas]
+        check(got == want, f"{lib}: the library's network buckets {got} "
+              f"are not NETWORK_SLOTS' {want}")
+    runs = [(f"K2 theta={theta} n={n}", theta, "fused_select",
              select_cases.k2_cases(theta, n, "cuda"), fused_select_cuda,
              ref.fused_select_ref)
             for theta in select_cases.WIDE_THETAS
             for n in (theta + WIDE_N_EXTRA, 256)]
-    runs += [(f"K3 theta={theta} ties={ties}", "coord_select",
+    runs += [(f"K3 theta={theta} ties={ties}", theta, "coord_select",
               select_cases.k3_cases(theta, ties, "cuda"), coord_select_cuda,
               ref.coord_select_ref)
              for theta in select_cases.WIDE_THETAS for ties in (False, True)]
     cases = 0
-    for run, name, run_cases, kernel, plain in runs:
+    for run, theta, name, run_cases, kernel, plain in runs:
         ops.reset_launch_counts()
         launched = 0
         for label, args, non_finite in run_cases:
@@ -2858,30 +2884,91 @@ def wide_theta_sweep(torch):
             launched += 1
         variants = ops.fused_select_variant_counts() \
             if name == "fused_select" else ops.coord_select_variant_counts()
-        check(variants == {"theta>32": launched},
+        check(variants == {variant_name(theta): launched},
               f"{run}: variants {variants}")
         cases += launched
     ops.reset_launch_counts()
     torch.cuda.empty_cache()
-    log(f"K2 and K3 at theta > 32 (the counted variants): {cases} cases, "
-        f"theta in {list(select_cases.WIDE_THETAS)}, K2 at n = theta + "
-        f"{WIDE_N_EXTRA} and 256, beta in {{1, ceil(theta/2), theta}}, d in "
-        f"{list(select_cases.WIDE_WIDTHS)}, ties and non-finite inputs: bit "
-        f"for bit the plain versions (NaN in the same places), every launch "
-        f"counted under theta>32")
-    return cases
+    log(f"K2 and K3 at theta > 32 (the network and counted variants): "
+        f"{cases} cases, theta in {list(select_cases.WIDE_THETAS)}, K2 at "
+        f"n = theta + {WIDE_N_EXTRA} and 256, beta in {{1, ceil(theta/2), "
+        f"theta}}, d in {list(select_cases.WIDE_WIDTHS)}, ties and "
+        f"non-finite inputs: bit for bit the plain versions (NaN in the "
+        f"same places), every launch counted under its variant")
+    return cases, wide_sweep_timing(torch, power)
+
+
+def wide_sweep_case(torch, kernel, theta):
+    """(wrapper, arguments, bound, slots bound) of K2 (``kernel`` "k2") or K3 ("k3") at
+    ``theta`` on the sweep's synthetic stack of WIDE_SWEEP_D columns: K2 on
+    (theta + WIDE_N_EXTRA, WIDE_SWEEP_D) rows (:func:`rows_stack`) with
+    ``select_cases.synthetic_plan``, K3 on (theta, WIDE_SWEEP_D) g_ext /
+    g_agr of the same noise; beta = theta - 4 (a multi-Bulyan plan's at f
+    = 2); the bound as ``k2_bound_s`` / ``k3_bound_s`` count it, on the
+    yardstick's slots and on the kernel's own (:func:`kernel_slots`).
+    ``tools/time_k1.py --thetas`` times the same cases."""
+    from repro_torch.kernels.coord_select import coord_select_cuda
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    d, beta, slots = WIDE_SWEEP_D, theta - 4, kernel_slots(theta)
+    if kernel == "k2":
+        n = theta + WIDE_N_EXTRA
+        we, wa = synthetic_plan(torch, theta, n, seed=theta)
+        return (fused_select_cuda,
+                (rows_stack(torch, d, seed=theta, n=n), we, wa, beta),
+                k2_bound_s(n, d, theta, beta),
+                k2_bound_s(n, d, theta, beta, slots))
+    g = rows_stack(torch, d, seed=theta, n=2 * theta)
+    return coord_select_cuda, (g[:theta], g[theta:], beta), \
+        k3_bound_s(d, theta, beta), k3_bound_s(d, theta, beta, slots)
+
+
+def wide_sweep_timing(torch, power):
+    """K2 and K3 at each theta of WIDE_THETAS on the sweep's synthetic
+    stack (:func:`wide_sweep_case`), each output held bit for bit to its
+    plain version; median ms of 5 beside the bound, on the yardstick's
+    slots and on the kernel's own.  Returns {"theta=t": {"variant",
+    "k2_ms", "k2_bound_ms", "k2_bound_by", "k2_slots_bound_ms", "k3_ms",
+    "k3_bound_ms", "k3_bound_by", "k3_slots_bound_ms"}}."""
+    from repro_torch.kernels import ref, select_cases
+    from repro_torch.kernels.fused_select import variant_name
+    out = {}
+    for theta in select_cases.WIDE_THETAS:
+        r = out[f"theta={theta}"] = {"variant": variant_name(theta)}
+        for k, plain in (("k2", ref.fused_select_ref),
+                         ("k3", ref.coord_select_ref)):
+            fn, args, bound, own = wide_sweep_case(torch, k, theta)
+            check(same_bits(torch, fn(*args), plain(*args, chunk=1 << 18)),
+                  f"{k} sweep theta={theta}: differs from its plain version")
+            r[f"{k}_ms"] = time_ms(torch, lambda: fn(*args), 5)
+            r[f"{k}_bound_ms"] = 1e3 * max(bound.values())
+            r[f"{k}_bound_by"] = max(bound, key=bound.get)
+            r[f"{k}_slots_bound_ms"] = 1e3 * max(own.values())
+            del args
+            torch.cuda.empty_cache()
+    log(f"K2 and K3 over theta > 32 on {WIDE_SWEEP_D:,} columns (K2 at n = "
+        f"theta + {WIDE_N_EXTRA}, beta = theta - 4; each bit for bit its "
+        f"plain version), median ms of 5: " + "; ".join(
+            f"{k} ({r['variant']}): K2 {r['k2_ms']:.4f} (bound "
+            f"{r['k2_bound_ms']:.4f} {r['k2_bound_by']}, on its slots "
+            f"{r['k2_slots_bound_ms']:.4f}), K3 {r['k3_ms']:.4f} (bound "
+            f"{r['k3_bound_ms']:.4f} {r['k3_bound_by']}, on its slots "
+            f"{r['k3_slots_bound_ms']:.4f})" for k, r in out.items())
+        + f"; card {power}")
+    return out
 
 
 def wide_entry(wide, k, launches):
-    """The ``kernels`` line's numbers of K2's or K3's counted variant
+    """The ``kernels`` line's numbers of K2's or K3's ``theta>32`` variant
     (``k``: "k2" or "k3"), timed over whisper's leaves at n = WIDE_N, and
     its largest difference from its plain version there; the launches
-    from the phase that ran it."""
+    from the phase that ran it.  ``slots_bound_ms`` is the bound with the
+    selection charged on the kernel's own slots (:func:`kernel_slots`)."""
     return {"theta": wide["theta"], "n": WIDE_N, "launches": launches,
             "max_abs_err": wide[f"{k}_err"], "ms": wide[k],
             "plain_ms": wide[f"{k}_plain"],
             "bound_ms": wide[f"{k}_bound"],
-            "bound_by": wide[f"{k}_bound_by"], "library_ms": None}
+            "bound_by": wide[f"{k}_bound_by"],
+            "slots_bound_ms": wide[f"{k}_slots_bound"], "library_ms": None}
 
 
 def whisper_batch(torch, argv):
@@ -2897,8 +2984,8 @@ def whisper_batch(torch, argv):
 
 def wide_two_step(torch, power):
     """One batch's real whisper-tiny gradients at n = WIDE_N (the ``inf``
-    attack): the fused apply (K2, every launch on the counted variant) and
-    ``fused=False`` (K3 once per leaf, every launch on the counted variant
+    attack): the fused apply (K2, every launch on the network variant) and
+    ``fused=False`` (K3 once per leaf, every launch on the network variant
     and held bit for bit to ``coord_select_ref`` on the g_ext / g_agr the
     substrate formed; K2 never).  Every coordinate where the two applies
     differ by more than 1e-6 x max(1, |fused|) must be a near-tie
@@ -2986,6 +3073,8 @@ def wide_two_step(torch, power):
     tot = {k: 0.0 for k in ("k2", "k2_plain", "k2_err", "k3", "k3_plain",
                             "k3_err")}
     bound = {k: {"bytes": 0.0, "operations": 0.0} for k in ("k2", "k3")}
+    own = {k: {"bytes": 0.0, "operations": 0.0} for k in ("k2", "k3")}
+    slots = kernel_slots(theta)
     we, wa = plan.w_ext, plan.w_agr
     for i, x in enumerate(leaves):
         m = x.shape[1]
@@ -3012,21 +3101,27 @@ def wide_two_step(torch, power):
         tot["k3_plain"] += time_ms(
             torch, lambda: ref.coord_select_ref(ge, ga, beta), 1)
         del ge, ga
-        for k, b in (("k2", k2_bound_s(WIDE_N, m, theta, beta)),
-                     ("k3", k3_bound_s(m, theta, beta))):
+        for k, b, o in (("k2", k2_bound_s(WIDE_N, m, theta, beta),
+                         k2_bound_s(WIDE_N, m, theta, beta, slots)),
+                        ("k3", k3_bound_s(m, theta, beta),
+                         k3_bound_s(m, theta, beta, slots))):
             for key in b:
                 bound[k][key] += b[key]
+                own[k][key] += o[key]
     for k, b in bound.items():
         tot[f"{k}_bound_by"] = max(b, key=b.get)
         tot[f"{k}_bound"] = 1e3 * max(b.values())
+        tot[f"{k}_slots_bound"] = 1e3 * max(own[k].values())
     tot.update(theta=theta, beta=beta, leaves=len(leaves),
                coordinates=sum(numels))
-    log(f"{label}: the counted variants over the {len(leaves)} leaves "
+    log(f"{label}: the network variants over the {len(leaves)} leaves "
         f"({sum(numels):,} coordinates x {WIDE_N} workers), ms per step: "
         f"K2 {tot['k2']:.4f} (plain {tot['k2_plain']:.4f}, bound "
-        f"{tot['k2_bound']:.4f}, {tot['k2_bound_by']}), K3 on the products "
-        f"{tot['k3']:.4f} (plain {tot['k3_plain']:.4f}, bound "
-        f"{tot['k3_bound']:.4f}, {tot['k3_bound_by']}); card {power}")
+        f"{tot['k2_bound']:.4f}, {tot['k2_bound_by']}, on its {slots} slots "
+        f"{tot['k2_slots_bound']:.4f}), K3 on the products {tot['k3']:.4f} "
+        f"(plain {tot['k3_plain']:.4f}, bound {tot['k3_bound']:.4f}, "
+        f"{tot['k3_bound_by']}, on its slots {tot['k3_slots_bound']:.4f}); "
+        f"card {power}")
     del grads, leaves
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
@@ -3039,11 +3134,11 @@ def encdec_training(torch, power):
     leaf per step, 41 each, every K2 launch on the theta = 5 kernel,
     nothing else, byzantine mass 0), its first step repeated bit for bit
     and a third run traced (:func:`repeated_step`); at n = WIDE_N (theta =
-    34: every K2 launch on the counted variant, K1 and K2 once per leaf
+    34: every K2 launch on the network variant, K1 and K2 once per leaf
     per step, byzantine mass 0); then one batch's real gradients at n =
     WIDE_N through the fused and the two-step applies
     (:func:`wide_two_step`).  Returns ({phase: counts}, {phase: numbers},
-    the counted variants' timing)."""
+    the network variants' timing)."""
     counts, numbers = {}, {}
     for phase, label, argv, theta in (
             ("whisper_training", "whisper training (whisper-tiny, full "
@@ -3212,18 +3307,20 @@ def stack_of(torch, argv, n, f):
     return grads
 
 
-def level_bound_s(n, m, plan):
+def level_bound_s(n, m, plan, own_slots=False):
     """The least seconds of one level's kernels on an (n, m) operand: K1
     (the stack read once, the (n, n) result written once; the gram's
-    upper triangle in fp32) and K2 (:func:`k2_bound_s`), each the larger
-    of its two times; for a weighted plan (the average) the stack read
-    once and the mean written once."""
+    upper triangle in fp32) and K2 (:func:`k2_bound_s`, its selection on
+    the kernel's own slots with ``own_slots``), each the larger of its two
+    times; for a weighted plan (the average) the stack read once and the
+    mean written once."""
     if plan.kind != "bulyan":
         return 4 * (n * m + m) / HBM_BYTES_PER_S
     k1 = max(4 * (n * m + n * n + n) / HBM_BYTES_PER_S,
              n * (n + 1) * m / FP32_FLOP_PER_S)
-    return k1 + max(k2_bound_s(n, m, plan.w_ext.shape[0],
-                               plan.beta).values())
+    theta = plan.w_ext.shape[0]
+    return k1 + max(k2_bound_s(n, m, theta, plan.beta, kernel_slots(
+        theta) if own_slots else None).values())
 
 
 def traced(torch, label, fn):
@@ -3241,13 +3338,18 @@ def traced(torch, label, fn):
 
 def flat_against_hier(torch, label, grads, n, f, theta_flat, power):
     """Flat multi-Bulyan and the grouped aggregation (groups of HIER_G) on
-    one stack, kernels on: stats + plan + apply, CUDA events, median of
-    HIER_REPS, beside each one's bound (:func:`level_bound_s` of every
-    level over the leaves), then each traced once.  Returns {"flat_ms",
-    "hier_ms", "flat_bound_ms", "hier_bound_ms", "flat_trace",
-    "hier_trace"}."""
+    one stack, kernels on.  First the flat apply on the flat plan, with
+    the kernels (one K2 launch a leaf, each on the variant of theta_flat)
+    and with the plain versions on the card: every leaf bit for bit.  Then
+    stats + plan + apply, CUDA events, median of HIER_REPS, beside each
+    one's bound (:func:`level_bound_s` of every level over the leaves, and
+    the flat one's on the kernels' own slots), then each traced once.
+    Returns {"flat_ms", "hier_ms", "flat_bound_ms", "flat_slots_bound_ms",
+    "hier_bound_ms", "flat_trace", "hier_trace"}."""
     from repro_torch.core import api
     from repro_torch.hier import GroupConfig, hier_aggregate_tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_select import variant_name
     from repro_torch.tree import tree_leaves
     flat = api.AggregatorBackend("multi_bulyan", f)
     cfg = GroupConfig(g=HIER_G)
@@ -3256,11 +3358,29 @@ def flat_against_hier(torch, label, grads, n, f, theta_flat, power):
         plan = flat.plan(flat.stats(grads))
         check(plan.w_ext.shape[0] == theta_flat,
               f"{label}: flat theta {plan.w_ext.shape[0]}")
+        ops.reset_launch_counts()
+        got = tree_leaves(flat.apply(plan, grads))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {**NO_KERNELS, "fused_select": len(widths)}
+        check(counts == want, f"{label}: flat apply launches {counts}, want "
+              f"{want}")
+        k2_variant_check(f"{label}, flat apply", len(widths), theta_flat)
+        with plain_versions():
+            plain = tree_leaves(flat.apply(plan, grads))
+        for i, (a, b) in enumerate(zip(got, plain)):
+            check(same_bits(torch, a, b), f"{label}: the flat apply's leaf "
+                  f"{i} is {abs_err(torch, a, b)} from the plain one's")
+        del got, plain
+        ops.reset_launch_counts()
         _, hplan, _ = hier_aggregate_tree(grads, f, cfg, use_kernels=True)
         check(all(p.w_ext.shape[0] == THETA_HIER for p in hplan.inner),
               f"{label}: inner thetas differ from {THETA_HIER}")
         out = {"flat_bound_ms": 1e3 * sum(level_bound_s(n, m, plan)
                                           for m in widths),
+               "flat_slots_bound_ms": 1e3 * sum(
+                   level_bound_s(n, m, plan, own_slots=True)
+                   for m in widths),
                "hier_bound_ms": 1e3 * sum(
                    sum(level_bound_s(e - s, m, p)
                        for p, (s, e) in zip(hplan.inner, hplan.bounds))
@@ -3275,10 +3395,13 @@ def flat_against_hier(torch, label, grads, n, f, theta_flat, power):
         out["hier_ms"] = time_ms(torch, hier_fn, HIER_REPS)
         out["flat_trace"] = traced(torch, f"{label}, flat:", flat_fn)
         out["hier_trace"] = traced(torch, f"{label}, grouped:", hier_fn)
-    log(f"{label}: stats + plan + apply on the ({n}, ...) stack, median of "
+    log(f"{label}: the flat apply (theta = {theta_flat}, {len(widths)} K2 "
+        f"launches on {variant_name(theta_flat)}) bit for bit its plain "
+        f"version; stats + plan + apply on the ({n}, ...) stack, median of "
         f"{HIER_REPS} (CUDA events): flat multi-Bulyan (theta = "
         f"{theta_flat}) {out['flat_ms']:.4f} ms (bound "
-        f"{out['flat_bound_ms']:.4f}), grouped (g = {HIER_G}, theta = "
+        f"{out['flat_bound_ms']:.4f}, on the kernels' slots "
+        f"{out['flat_slots_bound_ms']:.4f}), grouped (g = {HIER_G}, theta = "
         f"{THETA_HIER}) {out['hier_ms']:.4f} ms (bound "
         f"{out['hier_bound_ms']:.4f}) "
         f"({out['flat_ms'] / out['hier_ms']:.2f}x); card {power}")
@@ -3547,40 +3670,61 @@ def network_exchanges(slots):
     return c
 
 
-def select_phase_ops(theta, beta):
-    """fp32 operations of one coordinate's phase, the least the function
-    needs as select_tile.cuh runs it for K2 and K3: the median's network
-    on the kernel's slots (theta, or 32 above 16), two operations an
-    exchange, and the midpoint for an even theta; theta differences and
-    abs values; the threshold (theta - 1 mins for beta = 1, the network
-    again otherwise); a compare below and a compare at it a slot, beta
-    adds and the division.  Above theta = 32 the same selection on a
-    network at the next power of two: select_count.cuh's counted variants
-    rank every pair instead (about 8 theta^2 operations, 9349 at theta =
-    34), their algorithm's cost and not the function's."""
-    slots = theta if theta <= 16 else 32 if theta <= 32 \
-        else 1 << (theta - 1).bit_length()
+def kernel_slots(theta):
+    """The register slots the kernels' selection runs on at ``theta``:
+    theta up to 16, 32 up to 32, the network variant's bucket up to
+    ``fused_select.MAX_WIDE_THETA`` (``NETWORK_SLOTS``: 40, 48, 64, 96 or
+    128, at or below the next power of two), theta above (the counted
+    kernels there rank every pair instead)."""
+    from repro_torch.kernels import fused_select
+    if theta <= 32:
+        return theta if theta <= 16 else 32
+    # a checkout without the network variant counts theta above 32
+    return next((s for s in getattr(fused_select, "NETWORK_SLOTS", ())
+                 if theta <= s), theta)
+
+
+def select_phase_ops(theta, beta, slots=None):
+    """fp32 operations of one coordinate's phase as select_tile.cuh's
+    algorithm runs it for K2 and K3 on ``slots`` register slots: the
+    median's network, two operations an exchange, and the midpoint for an
+    even theta; theta differences and abs values; the threshold (theta -
+    1 mins for beta = 1, the network again otherwise); a compare below and
+    a compare at it a slot, beta adds and the division.  ``slots``
+    defaults to the yardstick that versions of the kernels are compared
+    on: theta up to 16, 32 up to 32, the next power of two above.
+    :func:`kernel_slots` gives the slots the kernels run on: the same up
+    to 32, their bucket's up to 128 (fewer operations, so a tighter
+    bound), theta above, where the counted kernels rank every pair (about
+    8 theta^2 operations, their algorithm's cost, which neither count
+    charges).  Both count this algorithm's operations, not the least any
+    algorithm could need."""
+    if slots is None:
+        slots = theta if theta <= 16 else 32 if theta <= 32 \
+            else 1 << (theta - 1).bit_length()
     net = 2 * network_exchanges(slots)
     threshold = theta - 1 if beta == 1 else net
     return net + (0 if theta & 1 else 2) + 2 * theta + threshold \
         + 2 * theta + beta + 1
 
 
-def k2_bound_s(n, m, theta, beta):
+def k2_bound_s(n, m, theta, beta, slots=None):
     """K2's least seconds on an (n, m) stack, by bytes and by operations:
     the stack read once, the (m,) result written once, the two (theta, n)
     weights read once; the two contractions (a multiply and an add each a
-    weight) and the coordinate phase (:func:`select_phase_ops`)."""
+    weight) and the coordinate phase (:func:`select_phase_ops` on
+    ``slots``)."""
     return {"bytes": 4 * (n * m + m + 2 * theta * n) / HBM_BYTES_PER_S,
-            "operations": (4 * theta * n + select_phase_ops(theta, beta))
-            * m / FP32_FLOP_PER_S}
+            "operations": (4 * theta * n + select_phase_ops(
+                theta, beta, slots)) * m / FP32_FLOP_PER_S}
 
 
-def k3_bound_s(m, theta, beta):
+def k3_bound_s(m, theta, beta, slots=None):
     """K3's least seconds on (theta, m) g_ext and g_agr: both read once,
-    the (m,) result written once; the coordinate phase's operations."""
+    the (m,) result written once; the coordinate phase's operations on
+    ``slots``."""
     return {"bytes": 4 * (2 * theta * m + m) / HBM_BYTES_PER_S,
-            "operations": select_phase_ops(theta, beta) * m
+            "operations": select_phase_ops(theta, beta, slots) * m
             / FP32_FLOP_PER_S}
 
 
@@ -3961,7 +4105,7 @@ def main():
         real_wire_k5(torch, worst_k5)
         worst_k3 = k3_vs_plain(torch)
         t0 = time.perf_counter()
-        wide_theta_sweep(torch)
+        _, wide_sweep = wide_theta_sweep(torch, power)
         log(f"theta > 32 sweep: {time.perf_counter() - t0:.1f}s")
         counts_k3, held, n_diff = two_step_substrate(torch)
         transform_training(torch)
@@ -4081,7 +4225,7 @@ def main():
                                if k.startswith("k2_")}
                         for leaf, r in moe_tot.items()},
          # the launches of each variant: the main path's theta = 5 kernel,
-         # and the counted one (theta > 32) of whisper at n = 40
+         # and the network one (theta > 32) of whisper at n = 40
          "variant_launches": {"theta=5": counts["fused_select"],
                               "theta=3": counts_hier["hier"][
                                   "fused_select"],
@@ -4089,6 +4233,11 @@ def main():
                                   "fused_select"]},
          "theta>32": wide_entry(wide, "k2", counts_ed["whisper_wide"][
              "fused_select"]),
+         # each theta of select_cases.WIDE_THETAS on one synthetic stack
+         "wide_sweep": {k: {m[3:]: v for m, v in r.items()
+                            if m.startswith("k2_")} | {
+                                "variant": r["variant"]}
+                        for k, r in wide_sweep.items()},
          # stats + plan + apply, flat against grouped (g = 7), on H1's
          # and H6's stacks
          "hier_ms": {k: hier_numbers[k] for k in ("hier_h2",
@@ -4126,7 +4275,11 @@ def main():
                               "theta>32": counts_ed["whisper_two_step"][
                                   "coord_select"]},
          "theta>32": wide_entry(wide, "k3", counts_ed["whisper_two_step"][
-             "coord_select"])},
+             "coord_select"]),
+         "wide_sweep": {k: {m[3:]: v for m, v in r.items()
+                            if m.startswith("k3_")} | {
+                                "variant": r["variant"]}
+                        for k, r in wide_sweep.items()}},
         # K6 and K7 have two grids, one entry each: on the one-rank NCCL
         # mesh the block is the stack, and they run the square kernel's
         # symmetric grid (stats_tile.cuh) from their own sources; a block
@@ -4213,7 +4366,7 @@ def main():
     log(f"hierarchical (repro_torch.hier): {json.dumps(hier_numbers)}; "
         f"card {power}")
     log(f"encoder-decoder (whisper-tiny): training {json.dumps(ed_train)}; "
-        f"serving {json.dumps(ed_serve)}; the counted variants at n = "
+        f"serving {json.dumps(ed_serve)}; the network variants at n = "
         f"{WIDE_N} {json.dumps(wide)}; card {power}")
     log(f"card: {power}; step seconds {step_s}; wire A step seconds "
         f"{wire_s}; whole run {time.perf_counter() - t_main:.1f}s (the "

@@ -6,8 +6,10 @@ fp32 ``g_ext``/``g_agr`` + β -> (d,) fp32, the θ-median of ``g_ext`` and
 the mean of the β ``g_agr`` values nearest it per coordinate.  It runs the
 coordinate phase of K2 (``csrc/select_tile.cuh``) after loading the two
 inputs, so the fused and the two-step substrates differ only in how the
-inputs were formed.  A θ above ``MAX_THETA`` takes the counted variant,
-which ranks straight from the inputs' columns, so every θ runs;
+inputs were formed.  A θ above ``MAX_THETA`` takes K2's network variant
+of the phase (up to ``fused_select.MAX_WIDE_THETA``, the g_agr column in
+shared memory) or its counted variant (above, which ranks straight from
+the inputs' columns), so every θ runs;
 ``coord_select_cuda.variant_launches`` counts the launches of each
 variant under K2's names (``fused_select.variant_name``).  The kernel's
 header says what bounds it; its plain version is
@@ -21,10 +23,10 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_select import variant_name
+from repro_torch.kernels.fused_select import launched_name
 
 #: largest θ the kernel's unrolled register slots hold (above it, the
-#: counted variant)
+#: network and the counted variants)
 MAX_THETA = 32
 #: grid cap (132 SMs x 16 on an H100); a grid-stride loop covers the rest
 MAX_BLOCKS = 2112
@@ -84,7 +86,7 @@ def coord_select_cuda(g_ext: torch.Tensor, g_agr: torch.Tensor,
         raise RuntimeError(f"coord_select kernel launch failed "
                            f"(cudaError {err}) for inputs "
                            f"{tuple(g_ext.shape)}, beta={beta}")
-    name = variant_name(variant.value)
+    name = launched_name(variant.value)
     coord_select_cuda.launches += 1
     counts = coord_select_cuda.variant_launches
     counts[name] = counts.get(name, 0) + 1

@@ -8,12 +8,14 @@ what bounds it and how its design meets that; its plain version is
 
 A θ ≤ ``MAX_EXACT_THETA`` takes a kernel compiled for that θ, one up to
 ``MAX_THETA`` the kernel over ``MAX_THETA`` slots guarded by the runtime
-θ, and every larger θ the counted variant, which ranks by counting and
-keeps its θ extracted and θ aggregated values in a scratch allocated for
-the launch, of the size that ``fused_select.cu`` gives
-(``fused_select_scratch_floats``; its launcher refuses a smaller one).
-``fused_select_cuda.variant_launches`` counts the launches of each
-(``"theta=5"``, ``"theta<=32"``, ``"theta>32"``) beside ``launches``.
+θ, one up to ``MAX_WIDE_THETA`` the network variant, which keeps the
+coordinate's θ extracted and θ aggregated values in shared memory, and
+every larger θ the counted variant, which ranks by counting and keeps
+them in a scratch allocated for the launch, of the size that
+``fused_select.cu`` gives (``fused_select_scratch_floats``; its launcher
+refuses a smaller one).  ``fused_select_cuda.variant_launches`` counts the
+launches of each (``"theta=5"``, ``"theta<=32"``, ``"theta>32"``,
+``"theta>128"``) beside ``launches``.
 """
 from __future__ import annotations
 
@@ -28,6 +30,16 @@ from repro_torch.kernels import build
 MAX_THETA = 32
 #: largest θ with a kernel compiled for it
 MAX_EXACT_THETA = 16
+#: the slot counts of the network variant's buckets (``for_bucket`` in
+#: ``csrc/select_count.cuh``; ``*_select_wide_shape`` reports a θ's): a θ
+#: in (previous, S] runs over S slots
+NETWORK_SLOTS = (40, 48, 64, 96, 128)
+#: largest θ of the network variant (the column on chip); the counted
+#: variant takes every larger θ
+MAX_WIDE_THETA = NETWORK_SLOTS[-1]
+#: the names of what the launchers report for the θ > 32 variants
+#: (``kNetworkVariant``, ``kCountedVariant`` in ``csrc/select_count.cuh``)
+_REPORTED = {-1: f"theta>{MAX_THETA}", -2: f"theta>{MAX_WIDE_THETA}"}
 #: grid cap of the θ ≤ 32 kernels (132 SMs x 16 on an H100; 1056 times
 #: the same on the main path); a grid-stride loop covers the rest
 MAX_BLOCKS = 2112
@@ -50,13 +62,41 @@ def _scratch_fn():
     return fn
 
 
+def wide_shape(theta: int, library: str = "fused_select"):
+    """The network variant's launch at θ on the current card, as K2's
+    library (or K3's, ``"coord_select"``) reports it: {"slots": its
+    bucket's, "threads", "smem_bytes" (a block's), "blocks_per_sm"}; None
+    for a θ outside 33..``MAX_WIDE_THETA``."""
+    fn = getattr(build.library(library), f"{library}_wide_shape")
+    slots, threads, per_sm = (ctypes.c_int32(0) for _ in range(3))
+    smem = ctypes.c_int64(0)
+    err = fn(ctypes.c_int64(theta), ctypes.byref(slots),
+             ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(per_sm))
+    if err == 1:  # cudaErrorInvalidValue: not a network variant's θ
+        return None
+    if err != 0:
+        raise RuntimeError(f"{library}_wide_shape failed (cudaError {err}) "
+                           f"at theta={theta}")
+    return {"slots": slots.value, "threads": threads.value,
+            "smem_bytes": smem.value, "blocks_per_sm": per_sm.value}
+
+
 def variant_name(theta: int) -> str:
     """The kernel variant a θ takes (the name its launches count under):
     the same for K2 and K3, which share their dispatch."""
     if theta <= MAX_EXACT_THETA:
         return f"theta={theta}"
-    return f"theta<={MAX_THETA}" if theta <= MAX_THETA \
-        else f"theta>{MAX_THETA}"
+    if theta <= MAX_THETA:
+        return f"theta<={MAX_THETA}"
+    return f"theta>{MAX_THETA}" if theta <= MAX_WIDE_THETA \
+        else f"theta>{MAX_WIDE_THETA}"
+
+
+def launched_name(variant: int) -> str:
+    """The name of the variant a launcher reported taking: its θ for a
+    kernel compiled for it, ``MAX_THETA`` for the guarded one, -1 for the
+    network variant and -2 for the counted one."""
+    return _REPORTED.get(variant) or variant_name(variant)
 
 
 def check_select_args(x: torch.Tensor, w_ext: torch.Tensor,
@@ -110,9 +150,7 @@ def fused_select_cuda(x: torch.Tensor, w_ext: torch.Tensor,
         raise RuntimeError(f"fused_select kernel launch failed "
                            f"(cudaError {err}) for x {tuple(x.shape)}, "
                            f"theta={theta}, beta={beta}")
-    # the kernel the launcher took: its θ (exact or counted), or MAX_THETA
-    # for the guarded one
-    name = variant_name(variant.value)
+    name = launched_name(variant.value)
     fused_select_cuda.launches += 1
     counts = fused_select_cuda.variant_launches
     counts[name] = counts.get(name, 0) + 1

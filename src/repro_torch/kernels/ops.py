@@ -143,7 +143,8 @@ def view_launch_counts() -> Dict[str, int]:
 def fused_select_variant_counts() -> Dict[str, int]:
     """Of the K2 launches in :func:`launch_counts`, those of each kernel
     variant: ``"theta=<θ>"`` (compiled for that θ), ``"theta<=32"`` (the
-    guarded slots) or ``"theta>32"`` (the counted variant)."""
+    guarded slots), ``"theta>32"`` (the network variant, θ up to 128) or
+    ``"theta>128"`` (the counted variant)."""
     return dict(fused_select_cuda.variant_launches)
 
 

@@ -1,4 +1,5 @@
-"""The θ > 32 cases that K2's and K3's counted variants are held to.
+"""The θ > 32 cases that K2's and K3's network and counted variants are
+held to.
 
 One grid, drawn from seeds, that the card tests
 (``tests/test_torch_kernels.py``) and ``chip_smoke.py`` both run: each
@@ -13,11 +14,16 @@ from __future__ import annotations
 
 import torch
 
-#: θ above the register kernels' 32 slots: odd and even, the main path's
-#: 34 (n = 40, f = 2), and powers of two past it
-WIDE_THETAS = (33, 34, 40, 64, 128)
+from repro_torch.kernels.fused_select import NETWORK_SLOTS
+
+#: θ above the register kernels' 32 slots: each side of every bucket's
+#: edge (33 and 129 included), so odd and even θ, and the main path's 34
+#: (n = 40, f = 2) and 41 (n = 49, f = 3), neither a multiple of the
+#: contraction's 16-slot passes
+WIDE_THETAS = tuple(sorted({33, 34, 41, *NETWORK_SLOTS,
+                            *(s + 1 for s in NETWORK_SLOTS)}))
 #: one column, widths that end inside a 128-column block, and one that
-#: runs the grid-stride loop once θ ≥ 64 caps the grid
+#: runs the grid-stride loop once a large θ caps the grid
 WIDE_WIDTHS = (1, 31, 257, 100_003)
 #: the width of the non-finite cases
 NON_FINITE_WIDTH = 4099

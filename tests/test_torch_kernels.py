@@ -1,6 +1,6 @@
 """K1 (pairwise_stats), K2 (fused_select), K5 (dequant_stats) and K3
-(coord_select) of the port, K2 and K3 at every θ (the counted variants
-above 32 included).
+(coord_select) of the port, K2 and K3 at every θ (the network and
+counted variants above 32 included).
 
 On the CPU the plain PyTorch versions (``repro_torch.kernels.ref``) are
 held to the Pallas kernels run in interpret mode, over the edge grid of
@@ -303,7 +303,7 @@ def test_coord_select_plain_matches_pallas_on_non_finite(jx, theta, beta):
     _nan_aware_close(got.numpy(), want)
 
 
-# ---------------------------------------------- θ > 32 (counted variants)
+# ------------------------------ θ > 32 (network and counted variants)
 WIDE_THETAS = (33, 34, 40)
 
 
@@ -311,7 +311,7 @@ WIDE_THETAS = (33, 34, 40)
 @pytest.mark.parametrize("case", ["plan", "ties", "non_finite"])
 def test_fused_select_plain_matches_pallas_wide_theta(jx, theta, case):
     """θ above the 32 register slots, where the CUDA wrapper takes the
-    counted variant: the plain version against the Pallas kernel, on a
+    network variant: the plain version against the Pallas kernel, on a
     real multi-Bulyan plan (n = θ + 2f + 2, f = 2), on one-hot / uniform
     weights with tied extracted values and distances, and on NaN, ±inf,
     ±0 and 1e30 in the stack (NaN-aware)."""
@@ -360,11 +360,18 @@ def test_coord_select_plain_matches_pallas_wide_theta(jx, theta, case):
 
 
 def test_select_cases_hold_the_grid_and_its_non_finite_inputs():
-    """The θ > 32 cases the card tests and the smoke script share, at θ =
-    33, n = 39: each β of {1, 17, 33} at each width, then one non-finite
-    case; one-hot ``w_ext`` rows; the same draws on every call.  The
-    non-finite stack and the NaN-laden K3 inputs give the plain versions
-    NaN (a NaN median) beside finite values."""
+    """The θ > 32 cases the card tests and the smoke script share: θ on
+    each side of every boundary (32 | 33, each network bucket's top and
+    the next θ, the last top the counted variant's start) and a θ that is
+    not a multiple of the contraction's 16-slot passes; at θ = 33, n = 39
+    each β of {1, 17, 33} at each width, then one non-finite case;
+    one-hot ``w_ext`` rows; the same draws on every call.  The non-finite
+    stack and the NaN-laden K3 inputs give the plain versions NaN (a NaN
+    median) beside finite values."""
+    thetas = select_cases.WIDE_THETAS
+    for top in (32,) + K2.NETWORK_SLOTS:
+        assert top + 1 in thetas and (top == 32 or top in thetas), top
+    assert any(t % 16 for t in thetas if t <= K2.MAX_WIDE_THETA)
     k2 = list(select_cases.k2_cases(33, 39, "cpu"))
     widths = len(select_cases.WIDE_WIDTHS)
     assert len(k2) == 3 * widths + 1
@@ -388,11 +395,33 @@ def test_select_cases_hold_the_grid_and_its_non_finite_inputs():
 
 def test_variant_names():
     """K2 and K3 share their dispatch: exact θ up to 16, the guarded slots
-    up to 32, the counted variant above."""
+    up to 32, the network variant up to 128, the counted variant above."""
     assert [K2.variant_name(t) for t in (1, 5, 16, 17, 32, 33, 1000)] == [
         "theta=1", "theta=5", "theta=16", "theta<=32", "theta<=32",
-        "theta>32", "theta>32"]
+        "theta>32", "theta>128"]
     assert ops.coord_select_variant_counts() == {}
+
+
+@pytest.mark.parametrize("theta,name", [
+    (32, "theta<=32"), (33, "theta>32"), (40, "theta>32"), (41, "theta>32"),
+    (48, "theta>32"), (49, "theta>32"), (64, "theta>32"), (65, "theta>32"),
+    (96, "theta>32"), (97, "theta>32"), (128, "theta>32"),
+    (129, "theta>128")])
+def test_variant_name_at_each_boundary(theta, name):
+    """Each side of every boundary of the dispatch: the network variant's
+    buckets share the name ``theta>32`` (θ = 33 to 128); the counted
+    variant, which keeps its column in a scratch, is ``theta>128``."""
+    assert K2.variant_name(theta) == name
+
+
+@pytest.mark.parametrize("reported,name", [
+    (1, "theta=1"), (5, "theta=5"), (16, "theta=16"), (32, "theta<=32"),
+    (-1, "theta>32"), (-2, "theta>128")])
+def test_launched_name_reads_what_the_launcher_reports(reported, name):
+    """The launchers report the kernel they took: its θ for a kernel
+    compiled for it, 32 for the guarded slots, -1 for the network variant
+    and -2 for the counted one; its launch counts under that name."""
+    assert K2.launched_name(reported) == name
 
 
 def test_fused_select_rejects_bad_shapes():
@@ -640,53 +669,60 @@ def test_k3_non_finite_matches_plain_on_card(card, theta, beta):
 @pytest.mark.parametrize("theta", select_cases.WIDE_THETAS)
 @pytest.mark.parametrize("n_extra", [1, 6, None])
 def test_k2_wide_theta_matches_plain_on_card(card, theta, n_extra):
-    """The counted variant (θ > 32) on ``select_cases.k2_cases``: n = θ +
-    1, θ + 6 or 256, β in {1, ⌈θ/2⌉, θ}, one-hot / uniform weights with
-    ties, at odd widths, and a non-finite stack: bit for bit the plain
-    version, NaN at the same places, and counted under ``"theta>32"``."""
+    """The network (θ ≤ 128) and counted variants on
+    ``select_cases.k2_cases``: n = θ + 1, θ + 6 or 256 (one row chunk to
+    sixteen), β in {1, ⌈θ/2⌉, θ}, one-hot / uniform weights with ties, at
+    odd widths, and a non-finite stack: bit for bit the plain version, NaN
+    at the same places, and counted under its variant (``"theta>32"``,
+    ``"theta>128"``)."""
     n = 256 if n_extra is None else theta + n_extra
+    name = K2.variant_name(theta)
     for label, args, non_finite in select_cases.k2_cases(theta, n, card):
-        before = fused_select_cuda.variant_launches.get("theta>32", 0)
+        before = fused_select_cuda.variant_launches.get(name, 0)
         got = fused_select_cuda(*args)
         want = ref.fused_select_ref(*args)
         torch.cuda.synchronize()
         assert _same_bits(got, want), label
         assert not non_finite or bool(torch.isnan(want).any()), label
-        assert fused_select_cuda.variant_launches["theta>32"] == before + 1
+        assert fused_select_cuda.variant_launches[name] == before + 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("theta", select_cases.WIDE_THETAS)
 @pytest.mark.parametrize("ties", [False, True])
 def test_k3_wide_theta_matches_plain_on_card(card, theta, ties):
-    """K3's counted variant on ``select_cases.k3_cases``: β in {1, ⌈θ/2⌉,
-    θ} at odd widths, and NaN in up to every row of a g_ext column: bit for
-    bit the plain version, NaN at the same places, and counted under
-    ``"theta>32"``."""
+    """K3's network (θ ≤ 128) and counted variants on
+    ``select_cases.k3_cases``: β in {1, ⌈θ/2⌉, θ} at odd widths, and NaN
+    in up to every row of a g_ext column: bit for bit the plain version,
+    NaN at the same places, and counted under its variant
+    (``"theta>32"``, ``"theta>128"``)."""
+    name = K2.variant_name(theta)
     for label, args, non_finite in select_cases.k3_cases(theta, ties, card):
-        before = coord_select_cuda.variant_launches.get("theta>32", 0)
+        before = coord_select_cuda.variant_launches.get(name, 0)
         got = coord_select_cuda(*args)
         want = ref.coord_select_ref(*args)
         torch.cuda.synchronize()
         assert _same_bits(got, want), label
         assert not non_finite or bool(torch.isnan(want).any()), label
-        assert coord_select_cuda.variant_launches["theta>32"] == before + 1
+        assert coord_select_cuda.variant_launches[name] == before + 1
 
 
 @pytest.mark.cuda
 def test_counted_scratch_is_sized_and_checked_by_the_kernel_on_card(card):
-    """The counted K2's grid covers d in blocks of 128 columns, capped so
-    its scratch (2θ floats a thread) stays near 32 MB, one block an SM at
-    least; θ ≤ 32 takes none.  Its launcher refuses a scratch one float
+    """The counted K2 (θ > 128)'s grid covers d in blocks of 128 columns,
+    capped so its scratch (2θ floats a thread) stays near 32 MB, one block
+    an SM at least; θ ≤ 128 takes none (the network variant keeps its
+    column in shared memory).  Its launcher refuses a scratch one float
     short of that size (cudaErrorInvalidValue, 1)."""
     floats = K2._scratch_fn()
-    assert floats(1, 34) == 2 * 34 * 128
-    assert floats(1000, 34) == 2 * 34 * 8 * 128
-    assert floats(10 ** 8, 34) == \
-        2 * 34 * ((32 << 20) // (8 * 34 * 128)) * 128
+    assert floats(1, 129) == 2 * 129 * 128
+    assert floats(1000, 129) == 2 * 129 * 8 * 128
+    assert floats(10 ** 8, 129) == \
+        2 * 129 * ((32 << 20) // (8 * 129 * 128)) * 128
     assert floats(10 ** 8, 1000) == 2 * 1000 * 132 * 128
-    assert floats(10 ** 8, 32) == 0 and floats(0, 34) == -1
-    theta, n, d = 34, 40, 1000
+    assert floats(10 ** 8, 32) == 0 and floats(10 ** 8, 34) == 0
+    assert floats(10 ** 8, 128) == 0 and floats(0, 129) == -1
+    theta, n, d = 129, 135, 1000
     w_ext, w_agr = (_t(w).to(card) for w in _synthetic_plan(theta, n, 1))
     x = _t(_x(n, d, seed=1)).to(card)
     out = torch.empty((d,), device=card)
@@ -697,6 +733,22 @@ def test_counted_scratch_is_sized_and_checked_by_the_kernel_on_card(card):
         short.data_ptr(), short.numel(), n, d, theta, 17, K2.MAX_BLOCKS,
         torch.cuda.current_stream().cuda_stream, ctypes.byref(variant))
     assert err == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("library", ["fused_select", "coord_select"])
+def test_network_buckets_match_the_library_on_card(card, library):
+    """Both libraries' network variant takes θ = 33 to ``MAX_WIDE_THETA``,
+    each θ over the slots of its bucket in ``NETWORK_SLOTS``, and reports
+    a block that fits the card."""
+    for theta in range(32, K2.MAX_WIDE_THETA + 2):
+        shape = K2.wide_shape(theta, library)
+        if not 32 < theta <= K2.MAX_WIDE_THETA:
+            assert shape is None, theta
+            continue
+        want = next(s for s in K2.NETWORK_SLOTS if theta <= s)
+        assert shape["slots"] == want, theta
+        assert shape["blocks_per_sm"] >= 1 and shape["threads"] % 32 == 0
 
 
 @pytest.mark.cuda

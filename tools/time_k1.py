@@ -8,6 +8,7 @@ card.
                              [--dtype int8|bf16] [--grid square|block]
                              [--copy] [--profile] [--order ABBA]
                              [--reps 5] [--n 11] [--f 2]
+                             [--thetas 33,34,...]
 
 Each ``SRC`` is the ``src`` directory of a checkout of this repository
 (for example a ``git archive`` of an earlier commit unpacked beside this
@@ -39,7 +40,16 @@ that two versions that should agree bit for bit can be seen to.
 and reports the device time of each CUDA kernel it launched, summed over
 the leaves (``"profile"``: {kernel name: ms}).  K2 and K3 also report
 their bound over the leaves (``"bound_ms"``, ``"bound_by"``), as
-``chip_smoke.py``'s ``k2_bound_s`` / ``k3_bound_s`` count it.
+``chip_smoke.py``'s ``k2_bound_s`` / ``k3_bound_s`` count it, and the
+same with the selection on the kernel's own slots (``"slots_bound_ms"``,
+``kernel_slots``).
+``--thetas`` (K2 / K3) times each listed theta on ``chip_smoke.py``'s
+sweep stack in place of the leaves (``wide_sweep_case``: 2^22 columns, K2
+on theta + 6 rows with ``kernels/select_cases.py``'s ``synthetic_plan``,
+K3 on (theta, 2^22) inputs, beta = theta - 4); ``"per_theta"`` holds each
+theta's median ms and bounds, and for a network variant (theta 33 to
+128) its bucket's slots, threads a block, shared memory bytes a block and
+blocks an SM (``fused_select.wide_shape``, where the checkout has it).
 
 The card's name and power limit come first; the last line is one JSON
 object with every run and, per checkout, the median over its runs.
@@ -115,7 +125,37 @@ def device_ms(torch, fn):
     return out
 
 
-def child(src, kernel, reps, n, f, dtype, grid, copy, profile):
+def theta_sweep(torch, kernel, thetas, reps):
+    """{"ms": the sum, "sha256", "per_theta": {theta: {"ms", "bound_ms",
+    "bound_by", "slots_bound_ms", and the network variant's "slots",
+    "threads", "smem_bytes", "blocks_per_sm"}}} of K2 or K3 at each theta on ``chip_smoke.py``'s
+    sweep stack (``wide_sweep_case``)."""
+    sys.path.insert(1, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from repro_torch.kernels import fused_select
+    shape_fn = getattr(fused_select, "wide_shape", None)
+    library = "fused_select" if kernel == "k2" else "coord_select"
+    digest, per = hashlib.sha256(), {}
+    for theta in thetas:
+        fn, args, bound, own = chip_smoke.wide_sweep_case(torch, kernel,
+                                                          theta)
+        digest.update(fn(*args).cpu().numpy().tobytes())
+        per[theta] = {"ms": chip_smoke.time_ms(torch, lambda: fn(*args),
+                                               reps),
+                      "bound_ms": 1e3 * max(bound.values()),
+                      "bound_by": max(bound, key=bound.get),
+                      "slots_bound_ms": 1e3 * max(own.values())}
+        shape = shape_fn and shape_fn(theta, library)
+        if shape:
+            per[theta].update(shape)
+        del args
+        torch.cuda.empty_cache()
+    return {"ms": sum(r["ms"] for r in per.values()),
+            "sha256": digest.hexdigest(), "per_theta": per}
+
+
+def child(src, kernel, reps, n, f, dtype, grid, copy, profile, thetas):
     sys.path.insert(0, src)
     import dataclasses
 
@@ -143,6 +183,11 @@ def child(src, kernel, reps, n, f, dtype, grid, copy, profile):
             pairwise_stats_rect_cuda
         names += ("pairwise_stats_rect",)
     build.build(names)
+    if thetas:
+        print(json.dumps({"src": src, "kernel": kernel,
+                          **theta_sweep(torch, kernel, thetas, reps)}),
+              flush=True)
+        return
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2)
     params = MD.init_model(cfg, seed=0, device="cuda")
     numels = [math.prod(p.shape) for p in tree_leaves(params)]
@@ -159,15 +204,17 @@ def child(src, kernel, reps, n, f, dtype, grid, copy, profile):
         sys.path.insert(1, os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
         import chip_smoke
-        s = {"bytes": 0.0, "operations": 0.0}
-        for m in numels:
-            leaf = chip_smoke.k2_bound_s(n, m, theta, plan.beta) \
-                if kernel == "k2" else chip_smoke.k3_bound_s(m, theta,
-                                                              plan.beta)
-            for key in s:
-                s[key] += leaf[key]
+        s, own = ({"bytes": 0.0, "operations": 0.0} for _ in range(2))
+        for slots, tot in ((None, s), (chip_smoke.kernel_slots(theta), own)):
+            for m in numels:
+                leaf = chip_smoke.k2_bound_s(n, m, theta, plan.beta, slots) \
+                    if kernel == "k2" else chip_smoke.k3_bound_s(
+                        m, theta, plan.beta, slots)
+                for key in tot:
+                    tot[key] += leaf[key]
         bound = {"bound_ms": 1e3 * max(s.values()),
-                 "bound_by": max(s, key=s.get)}
+                 "bound_by": max(s, key=s.get),
+                 "slots_bound_ms": 1e3 * max(own.values())}
 
     def inputs(i, m):
         if kernel in ("k5", "k7"):
@@ -263,11 +310,17 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--n", type=int, default=N)
     ap.add_argument("--f", type=int, default=F)
+    ap.add_argument("--thetas", default="",
+                    help="K2 / K3: comma-separated thetas on a synthetic "
+                         "stack in place of the leaves")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    thetas = [int(t) for t in args.thetas.split(",") if t]
+    if thetas and args.kernel not in ("k2", "k3"):
+        ap.error("--thetas takes --kernel k2 or k3")
     if args.child:
         child(args.srcs[0], args.kernel, args.reps, args.n, args.f,
-              args.dtype, args.grid, args.copy, args.profile)
+              args.dtype, args.grid, args.copy, args.profile, thetas)
         return 0
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -282,7 +335,7 @@ def main():
                               str(args.f), "--dtype", args.dtype, "--grid",
                               args.grid, *(["--copy"] if args.copy else []),
                               *(["--profile"] if args.profile else []),
-                              src],
+                              "--thetas", args.thetas, src],
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, flush=True)
@@ -291,14 +344,20 @@ def main():
         run["label"] = letter
         print(json.dumps(run), flush=True)
         runs.append(run)
-    per = {}
+    per, per_theta = {}, {}
     for run in runs:
         per.setdefault(run["label"], []).append(run["ms"])
+        for theta, r in run.get("per_theta", {}).items():
+            per_theta.setdefault(theta, {}).setdefault(
+                run["label"], []).append(r["ms"])
     print(json.dumps({"runs": runs, "kernel": args.kernel, "n": args.n,
                       "f": args.f, "dtype": args.dtype, "grid": args.grid,
                       "copy": args.copy,
                       "median_ms": {
         k: statistics.median(v) for k, v in per.items()},
+        **({"median_ms_per_theta": {
+            t: {k: statistics.median(v) for k, v in by.items()}
+            for t, by in per_theta.items()}} if per_theta else {}),
         "same_outputs": len({r["sha256"] for r in runs}) == 1}), flush=True)
     return 0
 
