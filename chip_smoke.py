@@ -336,6 +336,38 @@ phases), kernels on, the ``inf`` attack unless a phase says otherwise:
   their bounds (the flat one's also on the kernels' own slots), not
   gated.
 
+The async service phases (``repro_torch.serve``), kernels on:
+
+* S1 (after the hierarchical phases): ``serve.make_async_train_step`` at
+  the training phase's configuration with tau = 1 (its buffer an 11 x
+  326,970,880 fp32 stack, 14.39 GB), the launcher's batches, seeds and
+  parameters.  3 all-fresh rounds: records and parameters bit for bit the
+  training phase's.  Then 5 rounds with rows 8-10 late in rounds 1 and 2
+  and row 10 in round 3: ``n_overstale`` [0, 0, 3, 1, 0], ``plan_reused``
+  only at round 2, ``f_defended`` [2, 2, 0, 1, 2], round 2's plan round
+  1's bit for bit, byzantine mass 0, finite losses, K1 and K2 once per
+  leaf a round (theta = 5) and nothing else; round 3's buffer through the
+  plan and apply services with the plain versions (plan and aggregate bit
+  for bit the kernels'); the last round traced; the peak memory, the
+  round seconds against the training phase's and K1 + K2 on the buffer
+  against their bounds printed;
+* S2 (after robust serving): ``serve.make_microbatch_serve_step`` over
+  robust serving's 11 replicas at 2 layers, 8 lanes (6 live at prompts
+  32-128, each prefilled alone, 2 padded), 16 greedy tokens each lane at
+  its own position: K1 and K2 once a token on the (11, 1,215,488) stack
+  and nothing else, byzantine mass 0, the live lanes' fused logits the
+  honest model's per-lane decode bit for bit and the padded lanes 0; the
+  step at one position for every lane against ``make_robust_serve_step``
+  (bits or the largest difference printed); K1 / K2 on the first
+  token's stack held to their plain versions and timed, ms a token
+  against the 4-lane ensemble's;
+* S3: ``serve.run_closed_loop`` in sync and async mode, tau in {1, 2}, at
+  d = 65,536 and 16,777,216 (n = 11, f = 2, 40 rounds, microbatch 8): K1
+  and K2 once a replayed round and nothing else, every replay's
+  per-round accounting equal to a CPU replay of its masks with the plain
+  versions; qps, round p50 / p95 / p99, ``agg_us`` and the stale and
+  reused rounds printed.
+
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
 route or a serving phase and read just after it (``launches_by_phase``
@@ -537,6 +569,29 @@ HIER_WHISPER_LINE = "[train] hier: 7 groups [7, 7, 7, 7, 7, 7, 7] " \
     "f_inner=1 f_outer=1 inner=multi_bulyan outer=multi_bulyan"
 HIER_WHISPER_K1_K2 = {**K1_K2, "pairwise_stats": 8, "fused_select": 8}
 HIER_REPS = 5
+#: the async service phases (repro_torch.serve): S1 the async trainer at
+#: the training phase's flags, tau = 1, first all fresh (the training
+#: phase's 3 steps), then 5 rounds with these worker rows late (rows 8-10
+#: twice: overstale the second time, 3 > f, so round 2 reuses round 1's
+#: plan; then row 10 once more)
+ASYNC_TAU = 1
+ASYNC_FRESH_ROUNDS = 3
+ASYNC_LATE = ((), (8, 9, 10), (8, 9, 10), (10,), ())
+ASYNC_WANT = {"n_overstale": [0, 0, 3, 1, 0],
+              "plan_reused": [False, False, True, False, False],
+              "f_defended": [2, 2, 0, 1, 2]}
+#: S2 microbatched serving: 8 lanes, 6 live at these prompt lengths (each
+#: prefilled alone), 2 padded, a 160-slot cache, 16 tokens
+MICRO_LANES = 8
+MICRO_PROMPTS = (32, 48, 64, 80, 96, 128)
+MICRO_CACHE = 160
+MICRO_NEW = 16
+#: S3 the load model at the JAX serve_bench's defaults, at two widths (the
+#: second one 738 MB stack, a leaf's size); the CPU replay of its masks at
+#: LOAD_CHECK_D columns
+LOAD_WIDTHS = (65_536, 16_777_216)
+LOAD_TAUS = (1, 2)
+LOAD_CHECK_D = 4096
 
 
 class SmokeFailure(Exception):
@@ -3655,6 +3710,465 @@ def hier_training(torch, power, train_hist, train_params, worst_k5):
     return counts, numbers
 
 
+# ------------------------------------------------- the async service (serve)
+def async_run(torch, label, late, steps_flag, keep_round=None,
+              trace_round=None):
+    """``serve.make_async_train_step`` on the training phase's flags
+    (``--steps steps_flag`` for the learning-rate schedule), one round a
+    tuple of ``late`` worker rows, its batches, seeds and parameters the
+    launcher's.  Every count set to 0 before each round and read after it.
+    Returns (records as ``train.run`` makes them plus the staleness fields,
+    each round's plan, the summed counts, the final parameters, the state
+    after round ``keep_round`` (None: none kept), each round's host
+    seconds (round ``trace_round`` under ``torch.profiler``: its numbers
+    from :func:`log_profile` in the last record's ``trace``), the
+    service)."""
+    from repro_torch import models as MD
+    from repro_torch.core import api
+    from repro_torch.dist import init_train_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.serve import (AsyncAggService, make_async_train_step,
+                                   with_buffer)
+    from repro_torch.tree import tree_leaves
+    args = train.parse_args(with_flags(TRAIN_ARGS, steps=steps_flag))
+    cfg = MD.arch_config(args.arch, layers=args.layers)
+    rcfg = train.robust_config(args)
+    device = torch.device("cuda")
+    lr_fn = warmup_cosine(args.lr, warmup=max(args.steps // 20, 1),
+                          total_steps=args.steps)
+    opt = make_optimizer(args.optimizer, momentum=0.9)
+    step = make_async_train_step(cfg, rcfg, opt, lr_fn, tau=ASYNC_TAU,
+                                 chunk_q=min(args.seq, 512),
+                                 attack=args.attack, telemetry=True)
+    svc = AsyncAggService(api.AggregatorBackend.for_config(
+        rcfg, needs_dists=True), ASYNC_TAU)
+    params = MD.init_model(cfg, seed=args.seed, device=device)
+    state = with_buffer(init_train_state(opt, params), svc, params,
+                        args.workers)
+    records, plans, seconds, kept = [], [], [], None
+    total = collections.Counter()
+    variants = collections.Counter()
+    for i, wb in zip(range(len(late)), train.worker_batches(args, cfg,
+                                                              device)):
+        fresh = torch.ones(args.workers, dtype=torch.bool, device=device)
+        fresh[list(late[i])] = False
+        ops.reset_launch_counts()
+        run = lambda: step(params, state, wb, args.seed + i,  # noqa: E731
+                           fresh)
+        if i == trace_round:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                dt, (params, state, m) = wall_s(torch, run)
+            trace = log_profile(torch, prof, f"{label} round {i}",
+                                1e3 * dt, 8)
+        else:
+            dt, (params, state, m) = wall_s(torch, run)
+        counts = ops.launch_counts()
+        variants.update(ops.fused_select_variant_counts())
+        leaves = len(tree_leaves(params))
+        want = {**NO_KERNELS, "pairwise_stats": leaves,
+                "fused_select": leaves}
+        check(counts == want, f"{label} round {i}: launches {counts}, want "
+              f"{want}")
+        total.update(counts)
+        tel = m["telemetry"]
+        records.append({
+            "loss": float(m["loss"]),
+            "loss_per_worker": m["loss_per_worker"].tolist(),
+            "byz_mass": float(tel["byz_mass"]),
+            "selection": tel["selection"].tolist(),
+            "n_overstale": int(tel["n_overstale"]),
+            "plan_reused": bool(tel["plan_reused"]),
+            "f_defended": int(tel["f_defended"]),
+            "seconds": dt})
+        if i == trace_round:
+            records[-1]["trace"] = trace
+        plans.append(state.bstate.plan)
+        seconds.append(dt)
+        if i == keep_round:
+            kept = state
+    check(dict(variants) == {f"theta={THETA_MAIN}":
+                             total["fused_select"]},
+          f"{label}: K2 variants {dict(variants)}")
+    return records, plans, dict(total), params, kept, seconds, svc
+
+
+def async_training(torch, power, train_hist, train_params):
+    """S1, the async trainer (``serve.make_async_train_step``) at the
+    training phase's configuration, tau = ASYNC_TAU: (a) ASYNC_FRESH_ROUNDS
+    all-fresh rounds, bit for bit the training phase (records and
+    parameters); (b) the ASYNC_LATE schedule: the staleness fields
+    exactly ASYNC_WANT, round 2's plan round 1's bit for bit, byzantine
+    mass 0, finite losses, K1 and K2 once per leaf a round (theta = 5);
+    round 3's buffer through the plan and apply service with the plain
+    versions: the plan and the aggregate bit for bit the kernels'.  Prints
+    the peak memory, the steady round seconds against the training
+    phase's and K1 + K2 on the buffer against their bounds.  Returns
+    ({phase: counts}, numbers)."""
+    from repro_torch.tree import tree_leaves
+    label = "S1 async trainer (qwen2-1.5b, 2 layers, tau = 1)"
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hist, _, counts_a, params, _, _, _ = async_run(
+        torch, f"{label}, all fresh", [()] * ASYNC_FRESH_ROUNDS,
+        ASYNC_FRESH_ROUNDS)
+    peak_a = torch.cuda.max_memory_allocated()
+    same_run(torch, f"{label}, all fresh", hist, params, train_hist,
+             train_params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recs, plans, counts_b, params, state, seconds, svc = async_run(
+        torch, f"{label}, schedule", ASYNC_LATE, len(ASYNC_LATE),
+        keep_round=3, trace_round=len(ASYNC_LATE) - 1)
+    peak_b = torch.cuda.max_memory_allocated()
+    del params
+    got = {k: [r[k] for r in recs] for k in ASYNC_WANT}
+    check(got == ASYNC_WANT, f"{label}: staleness fields {got}, want "
+          f"{ASYNC_WANT}")
+    check(all(math.isfinite(r["loss"]) for r in recs) and
+          all(r["byz_mass"] == 0.0 for r in recs),
+          f"{label}: losses {[r['loss'] for r in recs]}, byzantine mass "
+          f"{[r['byz_mass'] for r in recs]}")
+    check(bits_equal(torch, plans[2].w_ext, plans[1].w_ext) and
+          bits_equal(torch, plans[2].w_agr, plans[1].w_agr),
+          f"{label}: round 2's plan is not round 1's")
+    # round 3's buffer (the state after it) through the plan and apply
+    # services: the kernels' apply of round 3's plan against the plain
+    # versions' plan and apply (round 3 is admissible: the plan service
+    # plans afresh)
+    bstate = state.bstate
+    with torch.no_grad():
+        agg_k = tree_leaves(svc.apply(plans[3], bstate))
+        with plain_versions():
+            plan_p, info_p = svc.plan(bstate)
+            agg_p = tree_leaves(svc.apply(plan_p, bstate))
+    check(bool(info_p["admissible"]) and
+          bits_equal(torch, plan_p.w_ext, plans[3].w_ext) and
+          bits_equal(torch, plan_p.w_agr, plans[3].w_agr),
+          f"{label}: the plain versions' plan on round 3's buffer differs "
+          f"(admissible {bool(info_p['admissible'])}, selection "
+          f"{plan_p.selection_weights().tolist()} against "
+          f"{plans[3].selection_weights().tolist()})")
+    for i, (a, b) in enumerate(zip(agg_k, agg_p)):
+        check(same_bits(torch, a, b), f"{label}: round 3's aggregate leaf "
+              f"{i} is {abs_err(torch, a, b)} from the plain versions'")
+    del agg_k, agg_p
+    # K1 and K2 on the buffer's leaves, one launch a leaf (CUDA events)
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
+    rows = [x.reshape(N, -1) for x in tree_leaves(bstate.grads)]
+    plan = plans[3]
+    k1_ms = time_ms(torch, lambda: [pairwise_stats_cuda(x) for x in rows], 3)
+    k2_ms = time_ms(torch, lambda: [fused_select_cuda(
+        x, plan.w_ext, plan.w_agr, plan.beta) for x in rows], 3)
+    bound_ms = 1e3 * sum(level_bound_s(N, x.shape[1], plan) for x in rows)
+    del rows, bstate, state
+    torch.cuda.empty_cache()
+    train_s = [r["seconds"] for r in train_hist[1:]]
+    out = {"fresh_rounds": ASYNC_FRESH_ROUNDS,
+           "schedule": {k: got[k] for k in ASYNC_WANT},
+           "round_s": seconds, "steady_round_s": seconds[1:-1],
+           "traced_round": recs[-1]["trace"],
+           "train_step_s": train_s,
+           "peak_gib_fresh": peak_a / 2 ** 30,
+           "peak_gib_schedule": peak_b / 2 ** 30,
+           "k1_k2_ms": k1_ms + k2_ms, "k1_ms": k1_ms, "k2_ms": k2_ms,
+           "k1_k2_bound_ms": bound_ms}
+    log(f"{label}: {ASYNC_FRESH_ROUNDS} all-fresh rounds bit for bit the "
+        f"training phase (records and parameters); the schedule (late "
+        f"rows {list(ASYNC_LATE)}): n_overstale {got['n_overstale']}, "
+        f"plan_reused {got['plan_reused']}, f_defended "
+        f"{got['f_defended']}; round 2's plan round 1's bit for bit; "
+        f"byzantine mass 0; launches {counts_b} over {len(ASYNC_LATE)} "
+        f"rounds, all theta = {THETA_MAIN}; round 3's plan and aggregate "
+        f"with the plain versions bit for bit the kernels'; peak memory "
+        f"{out['peak_gib_fresh']:.2f} / {out['peak_gib_schedule']:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated; the buffer alone "
+        f"{N * sum(p.numel() for p in tree_leaves(train_params)) * 4 / 1e9:.2f}"
+        f" GB); round seconds {[round(s, 4) for s in seconds]} (the last "
+        f"traced) against "
+        f"the training phase's steady steps {[round(s, 4) for s in train_s]}"
+        f"; K1 + K2 on the buffer {k1_ms:.4f} + {k2_ms:.4f} ms a round "
+        f"(bound {bound_ms:.4f}); {time.perf_counter() - t0:.1f}s; card "
+        f"{power}")
+    return {"async_fresh": counts_a, "async_schedule": counts_b}, out
+
+
+def recording_inputs_backend(rcfg):
+    """:func:`recording_backend` that also keeps the first stack it is
+    given."""
+    base = recording_backend(rcfg)
+
+    @dataclasses.dataclass(frozen=True)
+    class Keeping(type(base)):
+        inputs: list = dataclasses.field(default_factory=list,
+                                         compare=False)
+
+        def plan_stats(self, grads, **kw):
+            if not self.inputs:
+                self.inputs.append(grads)
+            return super().plan_stats(grads, **kw)
+
+    return Keeping.for_config(rcfg)
+
+
+def micro_caches(torch, MD, cfg, reps, prompts, pad):
+    """Each replica of ``reps`` prefilled lane by lane at B = 1 (one
+    prompt a lane), the lanes and ``pad`` empty lanes concatenated on the
+    cache batch axis; returns (caches a replica, the first replica's
+    last logits a lane)."""
+    from repro_torch.tree import tree_map
+    caches, first = [], None
+    for rep in reps:
+        lanes, logits = [], []
+        for p in prompts:
+            lg, c = MD.prefill_fn(rep, cfg, {"tokens": p},
+                                  chunk_q=p.shape[1], cache_len=MICRO_CACHE)
+            lanes.append(c)
+            logits.append(lg)
+        lanes += [tree_map(torch.zeros_like, lanes[0])] * pad
+        caches.append(tree_map(lambda *xs: torch.cat(xs, dim=1), *lanes))
+        if first is None:
+            first = torch.cat(logits)
+    return caches, first
+
+
+def microbatch_serving(torch, power, robust_out):
+    """S2, ``serve.make_microbatch_serve_step`` over the robust serving
+    phase's N replicas (N - F identical honest, replicas 0 and 1 their
+    embedding x ROBUST_CORRUPT) at ROBUST_LAYERS layers: MICRO_LANES
+    lanes, the first len(MICRO_PROMPTS) live at prompts of those lengths
+    (each prefilled alone, cache length MICRO_CACHE), the rest padded;
+    MICRO_NEW tokens, each lane fed its own greedy token at its own
+    position.  K1 and K2 once a token on the (N, B x V) stack and nothing
+    else; byzantine mass 0; the live lanes' fused logits the honest
+    model's per-lane decode bit for bit, the padded lanes 0.  Then the
+    microbatch step at one position for every lane against
+    ``make_robust_serve_step`` (bits or the largest difference printed),
+    and K1 / K2 on the first token's stack held to their plain versions and
+    timed.  Returns (counts, numbers)."""
+    from repro_torch import models as MD
+    from repro_torch.configs import RobustConfig
+    from repro_torch.dist.serving import make_robust_serve_step
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_select import fused_select_cuda
+    from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
+    from repro_torch.serve import make_microbatch_serve_step, pack_requests
+    from repro_torch.tree import tree_map
+    label = "S2 microbatch serving"
+    t_phase = time.perf_counter()
+    cfg = serving_config(ROBUST_LAYERS)
+    honest = MD.init_model(cfg, seed=5, device="cuda")
+    stack = tree_map(lambda t: torch.stack([t] * N), honest)
+    for i, factor in enumerate(ROBUST_CORRUPT):
+        stack["embed"]["table"][i] *= factor
+    reps = [tree_map(lambda t: t[i], stack) for i in range(F + 1)]
+    rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan",
+                        use_kernels=True)
+    backend = recording_inputs_backend(rcfg)
+    live = len(MICRO_PROMPTS)
+    pad = MICRO_LANES - live
+    prompts = [serve_prompt(torch, 1, s, seed=20 + b)
+               for b, s in enumerate(MICRO_PROMPTS)]
+    with torch.no_grad():
+        distinct, first = micro_caches(torch, MD, cfg, reps, prompts, pad)
+        # replicas F.. are the honest model: one cache, stacked N - F times
+        caches = tree_map(lambda *xs: torch.stack(xs),
+                          *(distinct[:F] + [distinct[F]] * (N - F)))
+        hcache = distinct[F]
+        del distinct
+        tok0 = torch.argmax(first, dim=-1).tolist()
+        rb = pack_requests(tok0, list(MICRO_PROMPTS), MICRO_LANES,
+                           device="cuda")
+    step = make_microbatch_serve_step(cfg, rcfg, backend=backend)
+    fused, step_s, wants = [], [], []
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for t in range(MICRO_NEW):
+            dt, (lg, caches) = wall_s(torch, lambda: step(stack, caches, rb))
+            fused.append(lg)
+            step_s.append(dt)
+            rb = dataclasses.replace(rb, tokens=torch.cat([
+                torch.argmax(lg[:live], dim=-1).int(),
+                torch.zeros(pad, dtype=torch.int32, device="cuda")]),
+                pos=rb.pos + rb.active.int())
+    counts = ops.launch_counts()
+    want = {**NO_KERNELS, "pairwise_stats": MICRO_NEW,
+            "fused_select": MICRO_NEW}
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    variants = k2_variant_check(label, MICRO_NEW)
+    byz = [float(p.diagnostics()["byz_mass"]) for p in backend.plans]
+    check(len(byz) == MICRO_NEW and all(b == 0.0 for b in byz),
+          f"{label}: byzantine mass {byz}")
+    stack0 = backend.inputs[0]
+    width = stack0[0].numel()
+    check(tuple(stack0.shape) == (N, MICRO_LANES, cfg.vocab_size),
+          f"{label}: the fused stack is {tuple(stack0.shape)}")
+    # the honest model's own per-lane decode, fed the same tokens
+    with torch.no_grad():
+        rb = pack_requests(tok0, list(MICRO_PROMPTS), MICRO_LANES,
+                           device="cuda")
+        for t in range(MICRO_NEW):
+            want_l, hcache = MD.decode_fn(honest, cfg, rb.tokens, hcache,
+                                          rb.pos)
+            check(fused[t].dtype == want_l.dtype and
+                  torch.equal(fused[t][:live], want_l[:live]),
+                  f"{label} token {t}: live lanes' fused logits differ from "
+                  f"the honest model's (max diff "
+                  f"{float((fused[t][:live].float() - want_l[:live].float()).abs().max())})")
+            check(bool(torch.all(fused[t][live:] == 0)),
+                  f"{label} token {t}: padded lanes not 0")
+            rb = dataclasses.replace(rb, tokens=torch.cat([
+                torch.argmax(fused[t][:live], dim=-1).int(),
+                torch.zeros(pad, dtype=torch.int32, device="cuda")]),
+                pos=rb.pos + rb.active.int())
+    del caches, hcache, fused
+    torch.cuda.empty_cache()
+    # one position for every lane: the microbatch step against the batched
+    # robust serve step
+    with torch.no_grad():
+        prompt = serve_prompt(torch, MICRO_LANES, SERVE_PROMPT, seed=31)
+        ucaches = [MD.prefill_fn(rep, cfg, {"tokens": prompt},
+                                 chunk_q=SERVE_PROMPT,
+                                 cache_len=MICRO_CACHE) for rep in reps]
+        tok = torch.argmax(ucaches[F][0], dim=-1).int()
+        ucaches = tree_map(lambda *xs: torch.stack(xs), *(
+            [c for _, c in ucaches[:F]] + [ucaches[F][1]] * (N - F)))
+        urb = pack_requests([0] * MICRO_LANES, [SERVE_PROMPT] * MICRO_LANES,
+                            MICRO_LANES, device="cuda")
+        urb = dataclasses.replace(urb, tokens=tok)
+        got_u, _ = make_microbatch_serve_step(cfg, rcfg)(stack, ucaches, urb)
+        want_u, _ = make_robust_serve_step(cfg, rcfg)(stack, ucaches, tok,
+                                                      SERVE_PROMPT)
+        uniform_diff = float((got_u.float() - want_u.float()).abs().max())
+        uniform_bits = bool(torch.equal(got_u, want_u))
+    del ucaches, stack
+    torch.cuda.empty_cache()
+    # K1 and K2 on the first token's stack as the backend gives it to them
+    x = stack0.reshape(N, -1).float().contiguous()
+    raw, sq = pairwise_stats_cuda(x)
+    raw_p, sq_p = ref.pairwise_stats_ref(x)
+    err_d = compare_k1(torch, raw, raw_p)
+    err_s = compare_k1(torch, sq, sq_p)
+    check(err_d[1] <= K1_TOL and err_s[1] <= K1_TOL,
+          f"{label}: K1 rel err dists {err_d[1]:.3e} norms {err_s[1]:.3e}")
+    plan, plan_p = plan_of(raw), plan_of(raw_p)
+    check(plan.beta == plan_p.beta and torch.equal(plan.w_ext, plan_p.w_ext)
+          and torch.equal(plan.w_agr, plan_p.w_agr),
+          f"{label}: the plan from K1's distances differs from the plain "
+          f"one's")
+    check(torch.equal(fused_select_cuda(x, plan.w_ext, plan.w_agr,
+                                        plan.beta),
+                      ref.fused_select_ref(x, plan.w_ext, plan.w_agr,
+                                           plan.beta)),
+          f"{label}: K2 differs from its plain version on the logit stack")
+    k1_ms = time_ms(torch, lambda: pairwise_stats_cuda(x), 50)
+    k2_ms = time_ms(torch, lambda: fused_select_cuda(
+        x, plan.w_ext, plan.w_agr, plan.beta), 50)
+    theta = plan.w_ext.shape[0]
+    out = {"token_ms": 1e3 * statistics.mean(step_s[1:]),
+           "token_ms_all": [round(1e3 * s, 4) for s in step_s],
+           "ensemble_token_ms": robust_out["token_ms"],
+           "k1_ms": k1_ms, "k2_ms": k2_ms,
+           "k1_bound_ms": 1e3 * 4 * (N * width + N * N + N)
+           / HBM_BYTES_PER_S,
+           "k2_bound_ms": 1e3 * max(k2_bound_s(
+               N, width, theta, plan.beta).values()),
+           "k1_err": max(err_d[0], err_s[0]), "width": width,
+           "uniform_bits": uniform_bits, "uniform_max_diff": uniform_diff}
+    log(f"{label} ({N} replicas of qwen2-1.5b at {cfg.n_layers} layers, "
+        f"{MICRO_LANES} lanes: {live} live at prompts {list(MICRO_PROMPTS)}"
+        f", {pad} padded; {MICRO_NEW} tokens): launches {counts}, K2 "
+        f"variants {variants}, on the ({N}, {width:,}) stack; byzantine "
+        f"mass 0; the live lanes' fused logits the honest model's per-lane "
+        f"decode bit for bit and the padded lanes 0 at every token; at one "
+        f"position for every lane against make_robust_serve_step: "
+        f"{'bit for bit' if uniform_bits else 'largest difference'} "
+        f"{uniform_diff:.3e}; {out['token_ms']:.4f} ms a token (mean of "
+        f"{MICRO_NEW - 1} after the first: {out['token_ms_all']}) against "
+        f"the {SERVE_BATCH}-lane ensemble's {robust_out['token_ms']:.4f}; K1 "
+        f"{k1_ms:.4f} ms (bound {out['k1_bound_ms']:.4f}) + K2 {k2_ms:.4f} "
+        f"(bound {out['k2_bound_ms']:.4f}) on the first token's stack, "
+        f"{100 * (k1_ms + k2_ms) / out['token_ms']:.1f} % of a token, each "
+        f"held to its plain version (K1 max abs err {out['k1_err']:.3e}; "
+        f"plans and K2 bit for bit); "
+        f"{time.perf_counter() - t_phase:.1f}s; card {power}")
+    return counts, out
+
+
+def load_model(torch, power):
+    """S3, ``serve.run_closed_loop`` in both modes at the JAX
+    ``serve_bench`` defaults (n = N, f = F, 40 rounds, microbatch 8) for
+    tau in LOAD_TAUS at each width of LOAD_WIDTHS.  Every replay of an
+    arrival schedule (``loadgen.replay_rounds``) is recorded: K1 and K2
+    once a round (and once for its warm-up round), nothing else, and its
+    per-round accounting (``n_overstale``, ``plan_reused``,
+    ``f_defended``) equal to a replay of the same masks on the CPU with
+    the plain versions (at LOAD_CHECK_D columns: the accounting reads the
+    ages only).  Returns (counts, {cell: result})."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import loadgen as LG
+    label = "S3 load model"
+    t_phase = time.perf_counter()
+    real = LG.replay_rounds
+    replays = []
+
+    def recording(cfg, fresh, device=None):
+        out = real(cfg, fresh, device)
+        replays.append((cfg, fresh.copy(), out))
+        return out
+
+    results, total = {}, collections.Counter()
+    LG.replay_rounds = recording
+    try:
+        for d in LOAD_WIDTHS:
+            for tau in LOAD_TAUS:
+                cfg = LG.LoadConfig(n=N, f=F, d=d, tau=tau, rounds=40,
+                                    microbatch=8)
+                for mode in ("sync", "async"):
+                    replays.clear()
+                    ops.reset_launch_counts()
+                    res = LG.run_closed_loop(cfg, mode, device="cuda")
+                    counts = ops.launch_counts()
+                    n_rounds = sum(c.rounds + 1 for c, _, _ in replays)
+                    want = {**NO_KERNELS, "pairwise_stats": n_rounds,
+                            "fused_select": n_rounds}
+                    key = f"d={d} tau={tau} {mode}"
+                    check(counts == want, f"{label} {key}: launches "
+                          f"{counts}, want {want}")
+                    total.update(counts)
+                    for c, fresh, rec in replays:
+                        cpu = real(dataclasses.replace(c, d=LOAD_CHECK_D),
+                                   fresh, "cpu")
+                        for k in ("n_overstale", "plan_reused",
+                                  "f_defended"):
+                            check(np.array_equal(rec[k], cpu[k]),
+                                  f"{label} {key}: {k} {rec[k].tolist()} "
+                                  f"against the CPU replay's "
+                                  f"{cpu[k].tolist()}")
+                    results[key] = res
+                    log(f"{label} {key}: qps {res['qps']:.2f}, round us "
+                        f"p50 {res['round_us_p50']:.1f} p95 "
+                        f"{res['round_us_p95']:.1f} p99 "
+                        f"{res['round_us_p99']:.1f}, agg_us "
+                        f"{res['agg_us']:.1f}, stale rounds "
+                        f"{res['stale_rounds']}, reused rounds "
+                        f"{res['reused_rounds']}; {len(replays)} replays, "
+                        f"launches {counts}, accounting the CPU replay's")
+    finally:
+        LG.replay_rounds = real
+    torch.cuda.empty_cache()
+    log(f"{label}: {json.dumps(results)}; "
+        f"{time.perf_counter() - t_phase:.1f}s; card {power}")
+    return dict(total), results
+
+
 def network_exchanges(slots):
     """Compare-exchanges of select_tile.cuh's Batcher odd-even merge sort
     on `slots` slots (its Network<N>::size())."""
@@ -4101,6 +4615,8 @@ def main():
         del wire_params
         counts_hier, hier_numbers = hier_training(torch, power, history,
                                                   params, worst_k5)
+        counts_async, async_out = async_training(torch, power, history,
+                                                 params)
         del params
         real_wire_k5(torch, worst_k5)
         worst_k3 = k3_vs_plain(torch)
@@ -4124,6 +4640,10 @@ def main():
         counts_phase["robust_serving"], robust_out = robust_serving(torch,
                                                                     power)
         log(f"serving phases: {time.perf_counter() - t0:.1f}s")
+        counts_phase["microbatch_serving"], micro_out = microbatch_serving(
+            torch, power, robust_out)
+        counts_phase["load_model"], load_out = load_model(torch, power)
+        counts_phase.update(counts_async)
         t0 = time.perf_counter()
         counts_fam, fam_train = family_training(torch, power)
         log(f"decoder families, training: {time.perf_counter() - t0:.1f}s")
@@ -4202,7 +4722,12 @@ def main():
          # one launch on each of the MoE phase's largest leaves
          "moe_leaves": {leaf: {k[3:]: v for k, v in r.items()
                                if k.startswith("k1_")}
-                        for leaf, r in moe_tot.items()}},
+                        for leaf, r in moe_tot.items()},
+         # S1: one launch a leaf over the async buffer's 14 leaves; S2: one
+         # launch on the microbatch's (N, 8 x V) logit stack
+         "async_buffer_ms": async_out["k1_ms"],
+         "microbatch_ms": micro_out["k1_ms"],
+         "microbatch_bound_ms": micro_out["k1_bound_ms"]},
         {"name": "fused_select", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_select.cu",
          "replaces": "src/repro/kernels/fused_select.py:142",
@@ -4224,6 +4749,9 @@ def main():
          "moe_leaves": {leaf: {k[3:]: v for k, v in r.items()
                                if k.startswith("k2_")}
                         for leaf, r in moe_tot.items()},
+         "async_buffer_ms": async_out["k2_ms"],
+         "microbatch_ms": micro_out["k2_ms"],
+         "microbatch_bound_ms": micro_out["k2_bound_ms"],
          # the launches of each variant: the main path's theta = 5 kernel,
          # and the network one (theta > 32) of whisper at n = 40
          "variant_launches": {"theta=5": counts["fused_select"],
@@ -4365,6 +4893,9 @@ def main():
         f"decode consistency {fam_serve['decode_consistency']}; card {power}")
     log(f"hierarchical (repro_torch.hier): {json.dumps(hier_numbers)}; "
         f"card {power}")
+    log(f"async service (repro_torch.serve): S1 {json.dumps(async_out)}; "
+        f"S2 {json.dumps(micro_out)}; S3 {json.dumps(load_out)}; card "
+        f"{power}")
     log(f"encoder-decoder (whisper-tiny): training {json.dumps(ed_train)}; "
         f"serving {json.dumps(ed_serve)}; the network variants at n = "
         f"{WIDE_N} {json.dumps(wide)}; card {power}")

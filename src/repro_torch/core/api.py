@@ -845,6 +845,29 @@ class AggregatorBackend:
         return self.apply(plan, grads)
 
 
+def select_plan(pred: Tensor, on_true: AggPlan, on_false: AggPlan
+                ) -> AggPlan:
+    """``pred ? on_true : on_false`` over the data tensors (``weights``,
+    ``w_ext``, ``w_agr``) of two plans of one kind, by ``torch.where``:
+    ``pred`` is a 0-d bool tensor that is never read on the host, so the
+    async service degrades an inadmissible round to the previous round's
+    plan without a synchronisation.  The meta fields (kind, n, f, beta)
+    must match, as they do for two plans of one backend."""
+    meta = ("kind", "n", "f", "beta")
+    if any(getattr(on_true, m) != getattr(on_false, m) for m in meta):
+        raise ValueError(
+            "select_plan needs two plans of one kind: "
+            + ", ".join(f"{m}={getattr(on_true, m)!r}/"
+                        f"{getattr(on_false, m)!r}" for m in meta))
+
+    def pick(a, b):
+        return None if a is None else torch.where(pred.to(a.device), a, b)
+
+    return dataclasses.replace(
+        on_true, **{k: pick(getattr(on_true, k), getattr(on_false, k))
+                    for k in ("weights", "w_ext", "w_agr")})
+
+
 REGISTRY: Dict[str, Aggregator] = {}
 
 

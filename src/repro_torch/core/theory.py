@@ -1,6 +1,7 @@
 """Theoretical quantities from the paper, Lemmas 1-2 and Theorems 1-2
-(cf. ``repro.core.theory``), and the grouped f-budget arithmetic of the
-hierarchical aggregation (``repro_torch.hier``).
+(cf. ``repro.core.theory``), the grouped f-budget arithmetic of the
+hierarchical aggregation (``repro_torch.hier``) and the bounded-staleness
+budget of the async service (``repro_torch.serve``).
 
 :func:`check_level` is the single n-vs-f resilience gate that
 ``Aggregator.validate`` — and through it ``RobustConfig.validate`` —
@@ -223,3 +224,53 @@ def split_f_budget(n: int, f: int, g: int, *, rule: str = "multi_bulyan",
             f"capturable > f_outer; increase g, decrease f, or pass "
             f"enforce=False to deliberately run past the budget")
     return budget
+
+
+# ==========================================================================
+# the bounded-staleness f-budget arithmetic
+# ==========================================================================
+@dataclasses.dataclass(frozen=True)
+class StalenessBudget:
+    """How an async round's stale workers spend the byzantine budget.
+
+    The bounded-asynchrony argument of Chen et al. (arXiv 1705.05491): a
+    worker whose buffered gradient is older than the staleness bound
+    ``tau`` is indistinguishable from an adversarial one, so every
+    *overstale* worker is charged against the contract ``f`` the GAR
+    defends.
+
+    * ``f_defended(k)``: byzantine defense left after ``k`` workers went
+      overstale, ``max(f - k, 0)``.
+    * ``admissible(k)``: whether a round with ``k`` overstale workers is
+      still covered by the contract (``k <= f``); past that the plan
+      service falls back to the previous round's plan.
+
+    Python arithmetic for config-time checks; ``repro_torch.serve.buffer``
+    computes the same quantities in tensors inside the round.
+    """
+
+    n: int
+    f: int
+    tau: int
+
+    def f_defended(self, n_overstale: int) -> int:
+        return max(self.f - min(n_overstale, self.f), 0)
+
+    def admissible(self, n_overstale: int) -> bool:
+        return n_overstale <= self.f
+
+    def covers(self, n_byz: int, n_overstale: int) -> bool:
+        """Whether ``n_byz`` true traitors plus ``n_overstale`` stale rows
+        stay within the contract."""
+        return n_byz + n_overstale <= self.f
+
+
+def staleness_budget(n: int, f: int, tau: int, *,
+                     rule: str = "multi_bulyan") -> StalenessBudget:
+    """Derive and check the staleness budget of an async service: ``n``
+    must defend the contract ``f`` under ``rule`` (:func:`check_level`)
+    before any of it can be spent on staleness."""
+    if tau < 0:
+        raise ValueError(f"staleness bound tau must be >= 0, got {tau}")
+    check_level(n, f, rule=rule)
+    return StalenessBudget(n=n, f=f, tau=tau)

@@ -141,14 +141,17 @@ class TrainerState:
     ``astate`` (the adaptive attack's state, a dict of fp32 tensors,
     ``None`` unless the attack is adaptive) and ``cres`` (the
     error-feedback compression residual, a tree of fp32 ``(n, ...)``
-    leaves, ``None`` unless the codec has ``ef=1``).  The other slots of
-    the JAX container wait for their subsystems; the checkpoint store
-    saves the slots by field name (``state|astate|z``)."""
+    leaves, ``None`` unless the codec has ``ef=1``) and ``bstate`` (the
+    async bounded-staleness buffer, a ``serve.buffer.BufferState``, seeded
+    by ``serve.service.with_buffer``; ``None`` on the synchronous
+    trainers).  ``mstate`` waits for the observability subsystem; the
+    checkpoint store saves the slots by field name (``state|astate|z``)."""
 
     opt: OptState
     tstates: tuple = ()
     astate: Any = None
     cres: Any = None
+    bstate: Any = None
 
 
 def as_trainer_state(state) -> TrainerState:

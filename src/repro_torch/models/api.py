@@ -6,7 +6,8 @@ the encoder-decoder one (``cfg.is_encdec``, ``models/encdec.py``).
 * ``loss_fn(params, cfg, batch)``             -> scalar training loss
 * ``forward_fn(params, cfg, batch)``          -> tail logits (inference)
 * ``prefill_fn(params, cfg, batch)``          -> (last logits, cache)
-* ``decode_fn(params, cfg, token, cache, pos)`` -> (logits, cache)
+* ``decode_fn(params, cfg, token, cache, pos)`` -> (logits, cache); ``pos``
+  one position for the batch or a (B,) tensor, one a lane
 * ``init_cache_fn(params, cfg, batch, cache_len, memory=...)`` -> empty
   cache (an encoder-decoder's with the memory's cross K/V)
 * ``params_from_jax(tree, device=...)``       -> JAX parameters carried across

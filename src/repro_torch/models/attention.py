@@ -190,11 +190,13 @@ def init_kv_cache(batch: int, length: int, n_kv: int, head_dim: int,
 
 
 def position(pos, device) -> Tensor:
-    """A decode position as a 0-d int64 tensor on ``device``.  An int is
-    written by a fill on the device: no host-to-device copy, which would
-    wait for the queued work."""
+    """A decode position on ``device``: a 0-d int64 tensor, or a (B,) int64
+    tensor of per-lane positions when ``pos`` is a tensor of more than one
+    element.  An int is written by a fill on the device: no host-to-device
+    copy, which would wait for the queued work."""
     if isinstance(pos, torch.Tensor):
-        return pos.to(device=device, dtype=torch.long).reshape(())
+        pos = pos.to(device=device, dtype=torch.long)
+        return pos.reshape(-1) if pos.numel() > 1 else pos.reshape(())
     return torch.full((), pos, dtype=torch.long, device=device)
 
 
@@ -202,32 +204,48 @@ def attend_cached(p: dict, x: Tensor, cache: dict, pos, cfg: ArchConfig, *,
                   window: int = 0, seq_chunks: int = 1
                   ) -> Tuple[Tensor, dict]:
     """One-token decode.  x: (B, 1, d); ``pos``: the absolute position, an
-    int or a 0-d integer tensor (never read on the host).
+    int or a 0-d integer tensor, or a (B,) integer tensor, each lane at its
+    own position (never read on the host).
 
     Full cache (window == 0): write at slot ``pos``, attend to [0, pos].
     Ring buffer (window > 0): write at ``pos % window``; slot validity is
-    reconstructed from the absolute position each slot holds.  Returns
-    ``(y (B, 1, d), updated cache)``: the cache is written out of place,
-    so the caller's cache (or a replica stack sharing its storage) is left
-    as it was.
+    reconstructed from the absolute position each slot holds.  With
+    per-lane positions each lane writes its own slot and attends to its
+    own valid slots.  Returns ``(y (B, 1, d), updated cache)``: the cache
+    is written out of place, so the caller's cache (or a replica stack
+    sharing its storage) is left as it was.
     """
     bsz = x.shape[0]
     pos = position(pos, x.device)
+    lanes = pos.dim() == 1
+    if lanes and pos.shape[0] != bsz:
+        raise ValueError(f"{pos.shape[0]} lane positions for a batch of "
+                         f"{bsz}")
     q, k_new, v_new = project_qkv(p, x, cfg,
-                                  positions=pos.expand(bsz, 1))
-    slot = (pos % window if window else pos).reshape(1)
-    k = cache["k"].index_copy(1, slot, k_new.to(cache["k"].dtype))
-    v = cache["v"].index_copy(1, slot, v_new.to(cache["v"].dtype))
+                                  positions=pos.reshape(-1, 1).expand(bsz, 1))
+    if lanes:
+        # lane b writes its own slot: (lane, slot) pairs, out of place
+        at = (torch.arange(bsz, device=x.device),
+              pos % window if window else pos)
+        k = cache["k"].index_put(at, k_new[:, 0].to(cache["k"].dtype))
+        v = cache["v"].index_put(at, v_new[:, 0].to(cache["v"].dtype))
+    else:
+        slot = (pos % window if window else pos).reshape(1)
+        k = cache["k"].index_copy(1, slot, k_new.to(cache["k"].dtype))
+        v = cache["v"].index_copy(1, slot, v_new.to(cache["v"].dtype))
 
     length = k.shape[1]
     sidx = torch.arange(length, device=x.device)
+    at_pos = pos[:, None] if lanes else pos
     if window:
         # absolute position held by slot s after the write at `pos`
         # (floor modulo: torch's % on tensors, not fmod)
-        abs_pos = pos - torch.remainder(pos - sidx, window)
+        abs_pos = at_pos - torch.remainder(at_pos - sidx, window)
         valid = abs_pos >= 0                     # since abs_pos <= pos
     else:
-        valid = sidx <= pos
+        valid = sidx <= at_pos
+    # (1, L) for one position, (B, L) for per-lane ones
+    valid = valid.reshape(-1, length)
 
     n_heads = cfg.n_heads
     hd = cfg.resolved_head_dim
@@ -242,7 +260,7 @@ def attend_cached(p: dict, x: Tensor, cache: dict, pos, cfg: ArchConfig, *,
         vc = v.float().reshape(bsz, seq_chunks, lc, hkv, hd)
         qg = q.float().reshape(bsz, 1, hkv, rep, hd)
         logits = torch.einsum("bqgrd,bckgd->bgrck", qg, kc) * scale
-        vmask = valid.reshape(seq_chunks, lc)[None, None, None]
+        vmask = valid.reshape(-1, 1, 1, seq_chunks, lc)
         logits = torch.where(vmask, logits, torch.full_like(logits, _NEG))
         m_c = torch.amax(logits, dim=-1)                     # (B,g,r,c)
         e = torch.exp(logits - m_c[..., None])
@@ -258,7 +276,7 @@ def attend_cached(p: dict, x: Tensor, cache: dict, pos, cfg: ArchConfig, *,
         ke = _expand_kv(k, n_heads).float()                  # (B, L, H, hd)
         ve = _expand_kv(v, n_heads).float()
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), ke) * scale
-        logits = torch.where(valid[None, None, None], logits,
+        logits = torch.where(valid[:, None, None], logits,
                              torch.full_like(logits, _NEG))
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, ve).to(x.dtype)

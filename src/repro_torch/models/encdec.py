@@ -186,12 +186,14 @@ def encdec_decode_step(params: dict, cfg: ArchConfig, token: Tensor,
                        cache: dict, pos, *, window: int = 0,
                        seq_chunks: int = 1) -> Tuple[Tensor, dict]:
     """One decoder token.  token: (B,) ints; ``pos``: the absolute
-    position (an int or a 0-d tensor).  Returns (logits (B, vocab), a new
-    cache: the self-attention caches written out of place, the cross K/V
-    the same tensors)."""
+    position (an int or a 0-d tensor) or a (B,) tensor of per-lane
+    positions.  Returns (logits (B, vocab), a new cache: the
+    self-attention caches written out of place, the cross K/V the same
+    tensors)."""
     x = M.embedding_apply(params["embed"], token[:, None], act_dtype(cfg))
     pos = A.position(pos, x.device)
-    x = x + M.sinusoid(pos, cfg.d_model)[None, None].to(x.dtype)
+    x = x + M.sinusoid(pos, cfg.d_model).reshape(-1, 1, cfg.d_model).to(
+        x.dtype)
     cross = cache["cross"]
     new_self = []
     for i in range(cfg.n_layers):

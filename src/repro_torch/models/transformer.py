@@ -324,14 +324,16 @@ def decode_step(params: dict, cfg: ArchConfig, token: Tensor, cache: dict,
                 pos, *, window: int = 0, seq_chunks: int = 1
                 ) -> Tuple[Tensor, dict]:
     """One decode step.  token: (B,) ints; ``pos``: the absolute position
-    (an int or a 0-d tensor).  Returns (logits (B, vocab), the updated
-    cache, a new tree: ``cache`` is not written)."""
+    (an int or a 0-d tensor) or a (B,) tensor of per-lane positions.
+    Returns (logits (B, vocab), the updated cache, a new tree: ``cache`` is
+    not written)."""
     x = M.embedding_apply(params["embed"], token[:, None], act_dtype(cfg))
     # once a step, on the device; no layer reads the position back
     pos = A.position(pos, x.device)
     if cfg.rope == "none":
-        # the sinusoid of the current absolute position
-        x = x + M.sinusoid(pos, cfg.d_model)[None, None].to(x.dtype)
+        # the sinusoid of the current absolute position (of each lane's)
+        x = x + M.sinusoid(pos, cfg.d_model).reshape(
+            -1, 1, cfg.d_model).to(x.dtype)
     specs = layer_specs(cfg)
     groups = params["groups"]
     new = []

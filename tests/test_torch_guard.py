@@ -156,3 +156,14 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
                          timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_the_serve_package_is_covered():
+    """The bounded-staleness service (``repro_torch.serve``) and the
+    modules it extends are among the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("serve/__init__.py", "serve/buffer.py", "serve/service.py",
+                 "serve/batching.py", "serve/loadgen.py", "core/api.py",
+                 "core/theory.py", "dist/trainer.py", "models/attention.py",
+                 "models/transformer.py", "models/encdec.py"):
+        assert f"src/repro_torch/{want}" in names
