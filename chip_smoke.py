@@ -359,14 +359,42 @@ The async service phases (``repro_torch.serve``), kernels on:
   honest model's per-lane decode bit for bit and the padded lanes 0; the
   step at one position for every lane against ``make_robust_serve_step``
   (bits or the largest difference printed); K1 / K2 on the first
-  token's stack held to their plain versions and timed, ms a token
-  against the 4-lane ensemble's;
+  token's stack held to their plain versions and timed, K1 beside
+  ``torch.mm(x, x.T)`` on the same stack, ms a token against the 4-lane
+  ensemble's.  Then its MoE case: 11 replicas of reduced qwen3-moe (4
+  experts, top-2) at the published capacity factor 1.25, 9 and 16 lanes
+  on one token, position and cache, so that every lane routes to the
+  same two experts: K1 and K2 once and nothing else, byzantine mass 0,
+  every lane's fused logits the honest model's one-lane decode bit for
+  bit (the lanes that the batched dispatch's own capacity would change
+  logged);
 * S3: ``serve.run_closed_loop`` in sync and async mode, tau in {1, 2}, at
   d = 65,536 and 16,777,216 (n = 11, f = 2, 40 rounds, microbatch 8): K1
   and K2 once a replayed round and nothing else, every replay's
   per-round accounting equal to a CPU replay of its masks with the plain
   versions; qps, round p50 / p95 / p99, ``agg_us`` and the stale and
   reused rounds printed.
+
+The campaign phases (``repro_torch.sim``, after S1), kernels on:
+
+* C1: ``sim.run_campaign`` at the training phase's configuration (n = 11,
+  f = 2, multi_bulyan, seq 128, 2 sequences a worker), 2 steps of
+  ``none`` then 3 of ``inf``: finite losses, byzantine mass exactly 0 in
+  the ``inf`` phase, K1 and K2 once per leaf per step (theta = 5) and
+  nothing else; again checkpointing at the phase boundaries, the same
+  trace bit for bit; the ``sim.campaign.v1`` report written and re-read;
+  the last checkpoint
+  removed and the campaign resumed at step 2: its trace the tail of the
+  uninterrupted one bit for bit; step 2's stack rebuilt from the
+  checkpoint (its per-worker losses and selection the trace's bit for
+  bit) through the statistics, plan and apply with the kernels and with
+  the plain versions: K1 within its tolerance, the plan and the aggregate
+  bit for bit;
+* C2: ``launch/simulate.py --smoke --device cuda`` through its ``main``,
+  then with ``--async-tau 1`` and with ``--hier g=7 --workers 21 --f 1``
+  (the CLI's TINY model): each exits 0, and launches exactly its
+  campaigns' K1, K2 and K5 (the codec sweep's bf16 and int8 cells), every
+  K2 launch at its theta (5; 3 in the groups of 7).
 
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
@@ -592,6 +620,21 @@ MICRO_NEW = 16
 LOAD_WIDTHS = (65_536, 16_777_216)
 LOAD_TAUS = (1, 2)
 LOAD_CHECK_D = 4096
+#: S2's MoE case: reduced qwen3-moe (4 experts, top-2) at the published
+#: capacity factor, every lane the same token, position and cache; at 9
+#: lanes the batched dispatch's own capacity would be 8 slots an expert
+MOE_LANES = (9, 16)
+MOE_LANE_PROMPT = 12
+MOE_CAPACITY_FACTOR = 1.25
+#: C1, a campaign through repro_torch.sim at the training configuration:
+#: (steps, attack) of its two phases
+CAMPAIGN_PHASES = ((2, "none"), (3, "inf"))
+#: C2, the campaign CLI's three acceptance campaigns at its TINY model:
+#: (name, extra flags, the inner plans' theta)
+SIM_SMOKES = (("switch", (), THETA_MAIN),
+              ("async", ("--async-tau", "1"), THETA_MAIN),
+              ("hier", ("--hier", f"g={HIER_G}", "--workers", str(HIER_N),
+                        "--f", str(HIER_F)), THETA_HIER))
 
 
 class SmokeFailure(Exception):
@@ -4068,13 +4111,15 @@ def microbatch_serving(torch, power, robust_out):
                                            plan.beta)),
           f"{label}: K2 differs from its plain version on the logit stack")
     k1_ms = time_ms(torch, lambda: pairwise_stats_cuda(x), 50)
+    # the library call of the same gram, on the same stack
+    k1_lib_ms = time_ms(torch, lambda: torch.mm(x, x.T), 50)
     k2_ms = time_ms(torch, lambda: fused_select_cuda(
         x, plan.w_ext, plan.w_agr, plan.beta), 50)
     theta = plan.w_ext.shape[0]
     out = {"token_ms": 1e3 * statistics.mean(step_s[1:]),
            "token_ms_all": [round(1e3 * s, 4) for s in step_s],
            "ensemble_token_ms": robust_out["token_ms"],
-           "k1_ms": k1_ms, "k2_ms": k2_ms,
+           "k1_ms": k1_ms, "k1_lib_ms": k1_lib_ms, "k2_ms": k2_ms,
            "k1_bound_ms": 1e3 * 4 * (N * width + N * N + N)
            / HBM_BYTES_PER_S,
            "k2_bound_ms": 1e3 * max(k2_bound_s(
@@ -4092,7 +4137,8 @@ def microbatch_serving(torch, power, robust_out):
         f"{uniform_diff:.3e}; {out['token_ms']:.4f} ms a token (mean of "
         f"{MICRO_NEW - 1} after the first: {out['token_ms_all']}) against "
         f"the {SERVE_BATCH}-lane ensemble's {robust_out['token_ms']:.4f}; K1 "
-        f"{k1_ms:.4f} ms (bound {out['k1_bound_ms']:.4f}) + K2 {k2_ms:.4f} "
+        f"{k1_ms:.4f} ms (bound {out['k1_bound_ms']:.4f}, torch.mm(x, x.T) "
+        f"{k1_lib_ms:.4f}) + K2 {k2_ms:.4f} "
         f"(bound {out['k2_bound_ms']:.4f}) on the first token's stack, "
         f"{100 * (k1_ms + k2_ms) / out['token_ms']:.1f} % of a token, each "
         f"held to its plain version (K1 max abs err {out['k1_err']:.3e}; "
@@ -4167,6 +4213,328 @@ def load_model(torch, power):
     log(f"{label}: {json.dumps(results)}; "
         f"{time.perf_counter() - t_phase:.1f}s; card {power}")
     return dict(total), results
+
+
+def moe_lanes(torch, power):
+    """S2's MoE case: ``serve.make_microbatch_serve_step`` over N replicas
+    of reduced qwen3-moe (4 experts, top-2) at capacity factor
+    MOE_CAPACITY_FACTOR, replicas 0 and 1 their embedding x ROBUST_CORRUPT,
+    for each lane count of MOE_LANES every lane the same token, position
+    and cache (one prompt prefilled alone), so that all lanes route to the
+    same two experts.  One token each: K1 and K2 once and nothing else,
+    byzantine mass 0, every lane's fused logits the honest model's
+    one-lane decode bit for bit.  The batched decode without
+    ``lane_capacity`` (each expert capacity(B) slots) is logged beside it:
+    the lanes whose logits it changes.  Returns (counts, numbers)."""
+    from repro_torch import models as MD
+    from repro_torch.configs import RobustConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as E
+    from repro_torch.serve import make_microbatch_serve_step, pack_requests
+    from repro_torch.tree import tree_map
+    label = "S2 MoE lanes (qwen3-moe-30b-a3b reduced, capacity factor " \
+        f"{MOE_CAPACITY_FACTOR})"
+    t0 = time.perf_counter()
+    base = get_config("qwen3-moe-30b-a3b").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=MOE_CAPACITY_FACTOR))
+    honest = MD.init_model(cfg, seed=7, device="cuda")
+    stack = tree_map(lambda t: torch.stack([t] * N), honest)
+    for i, factor in enumerate(ROBUST_CORRUPT):
+        stack["embed"]["table"][i] *= factor
+    rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan",
+                        use_kernels=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    prompt = torch.randint(0, cfg.vocab_size, (1, MOE_LANE_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    total = collections.Counter()
+    out = {}
+    with torch.no_grad():
+        # the distinct replicas' caches: the two corrupted ones and honest
+        pre = [MD.prefill_fn(tree_map(lambda t: t[i], stack), cfg,
+                             {"tokens": prompt}, chunk_q=MOE_LANE_PROMPT,
+                             cache_len=MICRO_CACHE) for i in range(F + 1)]
+        tok = int(torch.argmax(pre[F][0][0]))
+        one = pre[F][1]
+        want, _ = MD.decode_fn(honest, cfg, torch.tensor(
+            [tok], dtype=torch.int32, device="cuda"), one,
+            torch.tensor([MOE_LANE_PROMPT], dtype=torch.int32,
+                         device="cuda"))
+        for lanes in MOE_LANES:
+            rep = [tree_map(lambda t: t.repeat_interleave(lanes, dim=1), c)
+                   for _, c in pre]
+            caches = tree_map(lambda *xs: torch.stack(xs),
+                              *(rep[:F] + [rep[F]] * (N - F)))
+            rb = pack_requests([tok] * lanes, [MOE_LANE_PROMPT] * lanes,
+                               lanes, device="cuda")
+            backend = recording_backend(rcfg)
+            step = make_microbatch_serve_step(cfg, rcfg, backend=backend)
+            ops.reset_launch_counts()
+            fused, _ = step(stack, caches, rb)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            want_c = {**NO_KERNELS, "pairwise_stats": 1, "fused_select": 1}
+            check(counts == want_c, f"{label}, {lanes} lanes: launches "
+                  f"{counts}, want {want_c}")
+            k2_variant_check(f"{label}, {lanes} lanes", 1)
+            total.update(counts)
+            byz = float(backend.plans[0].diagnostics()["byz_mass"])
+            check(byz == 0.0, f"{label}, {lanes} lanes: byzantine mass "
+                  f"{byz}")
+            bad = [b for b in range(lanes)
+                   if not bits_equal(torch, fused[b], want[0])]
+            check(not bad, f"{label}, {lanes} lanes: lanes {bad} differ "
+                  f"from the one-lane decode (largest difference "
+                  f"{float((fused.float() - want.float()).abs().max()):.3e})")
+            plain, _ = MD.decode_fn(honest, cfg, rb.tokens, rep[F], rb.pos)
+            changed = [b for b in range(lanes)
+                       if not bits_equal(torch, plain[b], want[0])]
+            out[lanes] = {"capacity": E.capacity(lanes, cfg.moe),
+                          "lane_capacity": E.capacity(
+                              lanes, cfg.moe, lane_capacity=True),
+                          "plain_capacity_lanes_changed": changed}
+            del caches, rep
+    log(f"{label}: {N} replicas, lanes {list(MOE_LANES)} on one token, "
+        f"position and cache: K1 and K2 once a step, all theta = "
+        f"{THETA_MAIN}, byzantine mass 0, every lane's fused logits the "
+        f"honest one-lane decode bit for bit; without lane_capacity "
+        f"{json.dumps(out)}; {time.perf_counter() - t0:.1f}s; card {power}")
+    return dict(total), out
+
+
+def campaign(torch, power, n_leaves):
+    """C1, a campaign through ``repro_torch.sim.run_campaign`` at the
+    training phase's configuration (qwen2-1.5b at full width, 2 layers,
+    n = N, f = F, multi-Bulyan, kernels on, seq 128, 2 sequences a worker)
+    with the phases CAMPAIGN_PHASES: finite losses, byzantine mass exactly
+    0 in the ``inf`` phase, K1 and K2 once per leaf per step (theta = 5)
+    and nothing else; run again checkpointing at the boundaries, the same
+    trace bit for bit; the ``sim.campaign.v1`` report written and re-read;
+    the last checkpoint
+    removed and the campaign resumed from the boundary: its trace the
+    uninterrupted run's tail bit for bit.  Then the boundary step's stack
+    rebuilt from the checkpoint (the parameters, the engine's batch and
+    seed; per-worker losses and selection the trace's bit for bit) through
+    the statistics, the plan and the apply with the kernels and with the
+    plain versions: K1 within its tolerance, the plan and the aggregate
+    bit for bit.  Returns ({phase: counts}, numbers)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import models as MD
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import RobustConfig
+    from repro_torch.core import api
+    from repro_torch.core.attacks import fold_seed
+    from repro_torch.dist.trainer import inject_byzantine, per_worker_grads
+    from repro_torch.kernels import ops
+    from repro_torch.sim import (AttackPhase, AttackSchedule, Scenario,
+                                 report, run_campaign)
+    from repro_torch.sim import engine
+    from repro_torch.tree import tree_leaves
+    label = "C1 campaign (qwen2-1.5b, 2 layers)"
+    t0 = time.perf_counter()
+    cfg = MD.arch_config("qwen2-1.5b", layers=2)
+    sc = Scenario(name="c1", schedule=AttackSchedule(tuple(
+        AttackPhase(steps=s, attack=a) for s, a in CAMPAIGN_PHASES)),
+        n_workers=N, f=F, gar="multi_bulyan", use_kernels=True, arch=cfg,
+        seq=128, per_worker_batch=2)
+    steps = sc.schedule.total_steps
+    boundary = CAMPAIGN_PHASES[0][0]
+    work = tempfile.mkdtemp(prefix="chip_smoke_c1_")
+    ckpt = os.path.join(work, "ckpt")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        bare = run_campaign(sc, device="cuda")
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {**NO_KERNELS, "pairwise_stats": n_leaves * steps,
+                "fused_select": n_leaves * steps}
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        k2_variant_check(label, counts["fused_select"])
+        # again, checkpointing at the boundaries: the same trace
+        full = run_campaign(sc, ckpt_dir=ckpt, device="cuda")
+        tr = full.trace
+        check(sorted(tr) == sorted(bare.trace) and all(
+            tr[k].tobytes() == bare.trace[k].tobytes() for k in tr),
+            f"{label}: the checkpointing run's trace is not the first's")
+        check(bool(np.all(np.isfinite(tr["loss"])) and
+                   np.all(np.isfinite(tr["loss_per_worker"]))),
+              f"{label}: losses {tr['loss'].tolist()}")
+        check(bool(np.all(tr["byz_mass"][boundary:] == 0.0)),
+              f"{label}: byzantine mass under inf "
+              f"{tr['byz_mass'][boundary:].tolist()}")
+        path = report.write_json(os.path.join(work, "c1.json"), full)
+        with open(path) as fh:
+            back = json.load(fh)
+        check(back == json.loads(json.dumps(report.result_to_json(full)))
+              and back["schema"] == "sim.campaign.v1"
+              and len(back["per_step"]["loss"]) == steps
+              and [p["attack"] for p in back["summary"]["phases"]] ==
+              [a for _, a in CAMPAIGN_PHASES],
+              f"{label}: the report {path} does not re-read as written")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                         for f in os.listdir(ckpt))
+        os.remove(os.path.join(ckpt, f"ckpt_{steps:08d}.npz"))
+        ops.reset_launch_counts()
+        resumed = run_campaign(sc, ckpt_dir=ckpt, resume=True,
+                               device="cuda")
+        counts_r = ops.launch_counts()
+        want_r = {**NO_KERNELS,
+                  "pairwise_stats": n_leaves * (steps - boundary),
+                  "fused_select": n_leaves * (steps - boundary)}
+        check(counts_r == want_r, f"{label}, resumed: launches {counts_r}, "
+              f"want {want_r}")
+        k2_variant_check(f"{label}, resumed", counts_r["fused_select"])
+        check(resumed.start_step == boundary and
+              sorted(resumed.trace) == sorted(tr),
+              f"{label}: resumed at {resumed.start_step}")
+        for k, v in resumed.trace.items():
+            check(v.dtype == tr[k].dtype and
+                  v.tobytes() == tr[k][boundary:].tobytes(),
+                  f"{label}: the resumed trace's {k} is not the tail's")
+        # the boundary step's stack, from the checkpoint
+        like = {"params": engine._init_params(sc, torch.device("cuda"))}
+        params = restore(ckpt, boundary, like)["params"]
+        del like
+        batch = {k: v[0].cuda() for k, v in engine._make_batch_gen(
+            sc, None)([boundary]).items()}
+        losses, grads = per_worker_grads(params, cfg, batch,
+                                         chunk_q=min(sc.seq, 512))
+        del params
+        rcfg = RobustConfig(n_workers=N, f=F, gar="multi_bulyan",
+                            use_kernels=True)
+        backend = api.AggregatorBackend.for_config(rcfg, needs_dists=True)
+        with torch.no_grad():
+            grads = inject_byzantine(grads, F, CAMPAIGN_PHASES[1][1],
+                                     fold_seed(sc.seed, boundary))
+            ops.reset_launch_counts()
+            stats_k = backend.stats(grads)
+            plan_k = backend.plan(stats_k)
+            agg_k = tree_leaves(backend.apply(plan_k, grads))
+            counts_c = ops.launch_counts()
+            with plain_versions():
+                stats_p = backend.stats(grads)
+                plan_p = backend.plan(stats_p)
+                agg_p = tree_leaves(backend.apply(plan_p, grads))
+        del grads
+        check(losses.cpu().numpy().tobytes() ==
+              tr["loss_per_worker"][boundary].tobytes() and
+              plan_k.selection_weights().cpu().numpy().tobytes() ==
+              tr["selection"][boundary].tobytes(),
+              f"{label}: the rebuilt step {boundary} is not the campaign's "
+              f"(losses {losses.tolist()} against "
+              f"{tr['loss_per_worker'][boundary].tolist()})")
+        check(counts_c == {**NO_KERNELS, "pairwise_stats": n_leaves,
+                           "fused_select": n_leaves},
+              f"{label}: launches on the rebuilt step {counts_c}")
+        err_d = compare_k1(torch, stats_k.dists, stats_p.dists)
+        err_s = compare_k1(torch, stats_k.sq_norms, stats_p.sq_norms)
+        check(err_d[1] <= K1_TOL and err_s[1] <= K1_TOL,
+              f"{label}: K1 rel err dists {err_d[1]:.3e} norms "
+              f"{err_s[1]:.3e}")
+        check(plan_k.beta == plan_p.beta and
+              bits_equal(torch, plan_k.w_ext, plan_p.w_ext) and
+              bits_equal(torch, plan_k.w_agr, plan_p.w_agr),
+              f"{label}: the plan from K1's statistics differs from the "
+              f"plain versions'")
+        for i, (a, b) in enumerate(zip(agg_k, agg_p)):
+            check(same_bits(torch, a, b), f"{label}: the aggregate's leaf "
+                  f"{i} is {abs_err(torch, a, b)} from the plain one's")
+        del agg_k, agg_p
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out = {"steps": steps, "phases": [list(p) for p in CAMPAIGN_PHASES],
+           "loss": tr["loss"].tolist(),
+           "byz_mass": tr["byz_mass"].tolist(),
+           "honest_dev": tr["honest_dev"].tolist(),
+           "wall_s": bare.wall_s, "ckpt_wall_s": full.wall_s,
+           "resume_wall_s": resumed.wall_s,
+           "step_s": bare.wall_s / steps, "ckpt_bytes": ckpt_bytes,
+           "peak_gib": peak / 2 ** 30, "k1_max_abs_err": max(err_d[0],
+                                                             err_s[0])}
+    log(f"{label}: phases {list(CAMPAIGN_PHASES)}, launches {counts} = "
+        f"{n_leaves} leaves x {steps} steps, all theta = {THETA_MAIN}; "
+        f"losses {[round(x, 4) for x in out['loss']]}, byzantine mass "
+        f"{out['byz_mass']}, honest_dev "
+        f"{[round(x, 4) for x in out['honest_dev']]}; the report re-read; "
+        f"resumed at step {boundary} ({counts_r}): the tail bit for bit; "
+        f"step {boundary} rebuilt from the checkpoint: losses and selection "
+        f"the trace's, K1 within {K1_TOL} of its plain version (max abs "
+        f"err {out['k1_max_abs_err']:.3e}), the plan and the aggregate bit "
+        f"for bit; campaign {bare.wall_s:.2f}s ({out['step_s']:.4f}s a step "
+        f"with the data and records), again with 2 checkpoints of "
+        f"{ckpt_bytes / 2 ** 30:.2f} GiB {full.wall_s:.2f}s (the same trace "
+        f"bit for bit), resume {resumed.wall_s:.2f}s; "
+        f"peak memory {out['peak_gib']:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f}s; card {power}")
+    return {"campaign": counts, "campaign_resume": counts_r}, out
+
+
+def campaign_smokes(torch, power):
+    """C2, ``repro_torch.launch.simulate --smoke --device cuda`` through its
+    ``main`` for each of SIM_SMOKES (the flat switch with its codec sweep,
+    ``--async-tau 1``, ``--hier g=7 --workers 21 --f 1``), every count set
+    to 0 before and read after: each exits 0 with its OK line, every K2
+    launch at its theta, no K3 / K4 / K6 / K7 launch; the flat switch's
+    launches exactly its campaigns' (K1 per leaf per step on the
+    multi-Bulyan, averaging and fp32-wire steps, K5 per leaf per step on
+    the four bf16 and int8 wire cells, K2 per leaf per multi-Bulyan step),
+    the async campaign's K1 and K2 once per leaf a round, the hierarchical
+    ones' K1 and K2 once per group per leaf a step (and K1 on the group
+    stack under a krum outer level).  Returns ({phase: counts},
+    numbers)."""
+    from repro_torch import models as MD
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+    from repro_torch.sim.scenario import TINY
+    from repro_torch.tree import tree_leaves
+    leaves = len(tree_leaves(MD.init_model(TINY, device="cuda")))
+    switch = 2 * 20
+    sweep = simulate.SWEEP_STEPS * 2
+    wire_cells = sum(1 for c in simulate.SWEEP_CODECS if c != "fp32") * \
+        len(simulate.SWEEP_ATTACKS)
+    hier = 2 * simulate.HIER_SMOKE_STEPS
+    want = {
+        "switch": {**NO_KERNELS,
+                   "pairwise_stats": leaves * (2 * switch + sweep),
+                   "dequant_stats": leaves * wire_cells * sweep,
+                   "fused_select": leaves * (
+                       switch + (wire_cells + 1) * sweep)},
+        "async": {**NO_KERNELS,
+                  "pairwise_stats": leaves * 2 * simulate.ASYNC_SMOKE_STEPS,
+                  "fused_select": leaves * 2 * simulate.ASYNC_SMOKE_STEPS},
+        # defended and captured: 3 groups of 7 (an averaging outer level,
+        # no K1 on the group stack); rejected: 5 groups and krum over them
+        "hier": {**NO_KERNELS,
+                 "pairwise_stats": leaves * hier * (3 + 3 + 5 + 1),
+                 "fused_select": leaves * hier * (3 + 3 + 5)}}
+    counts_by, out = {}, {}
+    for name, extra, theta in SIM_SMOKES:
+        label = f"C2 simulate --smoke {' '.join(extra)}".rstrip()
+        tee = Tee(sys.stdout)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = simulate.main(["--smoke", "--device", "cuda", *extra])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        text = tee.kept.getvalue()
+        check(rc == 0 and "[sim] --smoke" in text and " OK" in text,
+              f"{label}: exit code {rc}")
+        check(counts == want[name], f"{label}: launches {counts}, want "
+              f"{want[name]}")
+        variants = k2_variant_check(label, counts["fused_select"], theta)
+        counts_by[f"sim_{name}"] = counts
+        out[name] = {"wall_s": wall, "launches": counts,
+                     "k2_variants": variants}
+        log(f"{label}: exit 0 ({TINY.name}, {leaves} leaves); launches "
+            f"{counts}, K2 variants {variants}; {wall:.1f}s; card {power}")
+    return counts_by, out
 
 
 def network_exchanges(slots):
@@ -4618,6 +4986,8 @@ def main():
         counts_async, async_out = async_training(torch, power, history,
                                                  params)
         del params
+        counts_c1, c1_out = campaign(torch, power, len(shapes))
+        counts_c2, c2_out = campaign_smokes(torch, power)
         real_wire_k5(torch, worst_k5)
         worst_k3 = k3_vs_plain(torch)
         t0 = time.perf_counter()
@@ -4642,8 +5012,12 @@ def main():
         log(f"serving phases: {time.perf_counter() - t0:.1f}s")
         counts_phase["microbatch_serving"], micro_out = microbatch_serving(
             torch, power, robust_out)
+        counts_phase["microbatch_moe"], moe_lane_out = moe_lanes(torch,
+                                                                 power)
         counts_phase["load_model"], load_out = load_model(torch, power)
         counts_phase.update(counts_async)
+        counts_phase.update(counts_c1)
+        counts_phase.update(counts_c2)
         t0 = time.perf_counter()
         counts_fam, fam_train = family_training(torch, power)
         log(f"decoder families, training: {time.perf_counter() - t0:.1f}s")
@@ -4727,7 +5101,8 @@ def main():
          # launch on the microbatch's (N, 8 x V) logit stack
          "async_buffer_ms": async_out["k1_ms"],
          "microbatch_ms": micro_out["k1_ms"],
-         "microbatch_bound_ms": micro_out["k1_bound_ms"]},
+         "microbatch_bound_ms": micro_out["k1_bound_ms"],
+         "microbatch_library_ms": micro_out["k1_lib_ms"]},
         {"name": "fused_select", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_select.cu",
          "replaces": "src/repro/kernels/fused_select.py:142",
@@ -4779,7 +5154,9 @@ def main():
              "stream_wire": counts_stream["stream_wire"]["dequant_stats"],
              "hier_wire": counts_hier["hier_wire"]["dequant_stats"],
              "hier_wire_stream":
-                 counts_hier["hier_wire_stream"]["dequant_stats"]},
+                 counts_hier["hier_wire_stream"]["dequant_stats"],
+             # C2: the campaign CLI's codec sweep (bf16 and int8 cells)
+             "sim_switch": counts_c2["sim_switch"]["dequant_stats"]},
          "max_abs_err": worst_k5["max_abs"],
          # over every group's slice of H5's payload (in max_abs_err too)
          "hier_wire_max_abs_err": hier_numbers["hier_wire"][
@@ -4894,8 +5271,10 @@ def main():
     log(f"hierarchical (repro_torch.hier): {json.dumps(hier_numbers)}; "
         f"card {power}")
     log(f"async service (repro_torch.serve): S1 {json.dumps(async_out)}; "
-        f"S2 {json.dumps(micro_out)}; S3 {json.dumps(load_out)}; card "
-        f"{power}")
+        f"S2 {json.dumps(micro_out)}; S2 MoE lanes {json.dumps(moe_lane_out)}"
+        f"; S3 {json.dumps(load_out)}; card {power}")
+    log(f"campaigns (repro_torch.sim): C1 {json.dumps(c1_out)}; C2 "
+        f"{json.dumps(c2_out)}; card {power}")
     log(f"encoder-decoder (whisper-tiny): training {json.dumps(ed_train)}; "
         f"serving {json.dumps(ed_serve)}; the network variants at n = "
         f"{WIDE_N} {json.dumps(wide)}; card {power}")

@@ -1,2 +1,4 @@
 """Synthetic data of the port (cf. ``repro.data``)."""
-from repro_torch.data.synthetic import lm_batches, make_lm_batch  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    dirichlet_mixture, lm_batches, lm_walk, make_lm_batch,
+    make_noniid_lm_batch)

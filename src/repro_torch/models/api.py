@@ -7,7 +7,8 @@ the encoder-decoder one (``cfg.is_encdec``, ``models/encdec.py``).
 * ``forward_fn(params, cfg, batch)``          -> tail logits (inference)
 * ``prefill_fn(params, cfg, batch)``          -> (last logits, cache)
 * ``decode_fn(params, cfg, token, cache, pos)`` -> (logits, cache); ``pos``
-  one position for the batch or a (B,) tensor, one a lane
+  one position for the batch or a (B,) tensor, one a lane;
+  ``lane_capacity=True`` keeps every lane's MoE tokens (``moe.capacity``)
 * ``init_cache_fn(params, cfg, batch, cache_len, memory=...)`` -> empty
   cache (an encoder-decoder's with the memory's cross K/V)
 * ``params_from_jax(tree, device=...)``       -> JAX parameters carried across
@@ -137,13 +138,16 @@ def prefill_fn(params: Tree, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 
 
 def decode_fn(params: Tree, cfg: ArchConfig, token: torch.Tensor, cache: Tree,
-              pos, *, window: int = 0, seq_chunks: int = 1
-              ) -> Tuple[torch.Tensor, Tree]:
+              pos, *, window: int = 0, seq_chunks: int = 1,
+              lane_capacity: bool = False) -> Tuple[torch.Tensor, Tree]:
+    """One decode step; ``lane_capacity`` gives an MoE layer's experts a
+    slot for every lane, so that each lane keeps its token as it would
+    decoding alone (the encoder-decoder has no MoE layer)."""
     if cfg.is_encdec:
         return ED.encdec_decode_step(params, cfg, token, cache, pos,
                                      window=window, seq_chunks=seq_chunks)
     return T.decode_step(params, cfg, token, cache, pos, window=window,
-                         seq_chunks=seq_chunks)
+                         seq_chunks=seq_chunks, lane_capacity=lane_capacity)
 
 
 def init_cache_fn(params: Tree, cfg: ArchConfig, batch: int, cache_len: int,

@@ -6,7 +6,9 @@ expert holds ``C = capacity(T)`` slots, a token's position in its expert
 comes from a cumulative count over the token-major ``(T·k)`` stream, and
 tokens overflowing an expert's capacity are dropped (their slots combine
 as zeros, so the residual passes through).  The same tokens drop as in
-JAX.
+JAX.  A microbatched decode (``serve.batching``) asks for ``lane_capacity``:
+each of its T lane tokens is one request, which the JAX package decodes
+alone, so an expert gets at least T slots and no lane token drops.
 
 Both directions between tokens and slots are gathers, so the layer's
 forward and backward are the same bits from run to run on CUDA, where a
@@ -50,9 +52,16 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
     return p
 
 
-def capacity(n_tokens: int, cfg: MoEConfig) -> int:
+def capacity(n_tokens: int, cfg: MoEConfig, *,
+             lane_capacity: bool = False) -> int:
+    """Slots an expert holds for ``n_tokens`` tokens.  With
+    ``lane_capacity`` at least ``n_tokens``: a token sends at most one
+    entry to an expert (top-k picks distinct experts), so none drops, as
+    none drops from a one-token dispatch; up to 8 tokens that is the
+    plain capacity."""
     c = math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
-    return max(8, -(-c // 8) * 8)  # a multiple of 8, as in the JAX package
+    c = max(8, -(-c // 8) * 8)  # a multiple of 8, as in the JAX package
+    return max(c, n_tokens) if lane_capacity else c
 
 
 def _gather_slots(rows: Tensor, dest: Tensor,
@@ -87,15 +96,17 @@ class _Dispatch(torch.autograd.Function):
         return _gather_slots(grad, dest), None, None
 
 
-def route(xf: Tensor, router: dict, cfg: MoEConfig):
-    """Router, top-k and the slot assignment of (T, d) tokens.
+def route(xf: Tensor, router: dict, cfg: MoEConfig, *,
+          lane_capacity: bool = False):
+    """Router, top-k and the slot assignment of (T, d) tokens
+    (``lane_capacity`` as in :func:`capacity`).
 
     Returns ``(gate (T, k) fp32 renormalised, expert_ids (T, k), dest
     (T·k,) slot of each stream entry with E·C for a dropped one, aux)``.
     """
     t = xf.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    c = capacity(t, cfg)
+    c = capacity(t, cfg, lane_capacity=lane_capacity)
     logits = M.linear_apply(router, xf).float()                 # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, expert_ids = torch.topk(probs, k, dim=-1)              # (T, k)
@@ -116,15 +127,17 @@ def route(xf: Tensor, router: dict, cfg: MoEConfig):
     return gate, expert_ids, dest, aux
 
 
-def moe_apply(p: dict, x: Tensor, cfg: MoEConfig, activation: str
-              ) -> Tuple[Tensor, Tensor]:
-    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar fp32)."""
+def moe_apply(p: dict, x: Tensor, cfg: MoEConfig, activation: str, *,
+              lane_capacity: bool = False) -> Tuple[Tensor, Tensor]:
+    """x: (B, S, d) -> (y (B, S, d), aux_loss scalar fp32);
+    ``lane_capacity`` as in :func:`capacity`."""
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
     e, k = cfg.n_experts, cfg.top_k
-    c = capacity(t, cfg)
-    gate, _, dest, aux = route(xf, p["router"], cfg)
+    c = capacity(t, cfg, lane_capacity=lane_capacity)
+    gate, _, dest, aux = route(xf, p["router"], cfg,
+                               lane_capacity=lane_capacity)
 
     # slot -> token index (sentinel t for an empty slot); every kept
     # stream entry owns its slot, the dropped ones all land on slot E*C,

@@ -137,14 +137,17 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 # --------------------------------------------------------------- forward
-def _mlp_block(p: dict, x: Tensor, cfg: ArchConfig, mlp_kind: Optional[str]
+def _mlp_block(p: dict, x: Tensor, cfg: ArchConfig, mlp_kind: Optional[str],
+               *, lane_capacity: bool = False
                ) -> Tuple[Tensor, Optional[Tensor]]:
-    """The layer's MLP half: (x, the MoE auxiliary loss or None)."""
+    """The layer's MLP half: (x, the MoE auxiliary loss or None);
+    ``lane_capacity`` as in ``moe.capacity``."""
     if mlp_kind is None:
         return x, None
     h2 = M.norm_apply(cfg.norm, p["norm2"], x)
     if mlp_kind == "moe":
-        y, aux = E.moe_apply(p["moe"], h2, cfg.moe, cfg.activation)
+        y, aux = E.moe_apply(p["moe"], h2, cfg.moe, cfg.activation,
+                             lane_capacity=lane_capacity)
         return x + y, aux
     return x + F.mlp_apply(p["mlp"], h2, cfg.activation), None
 
@@ -321,12 +324,13 @@ def prefill(params: dict, cfg: ArchConfig, tokens: Tensor, *,
 
 
 def decode_step(params: dict, cfg: ArchConfig, token: Tensor, cache: dict,
-                pos, *, window: int = 0, seq_chunks: int = 1
-                ) -> Tuple[Tensor, dict]:
+                pos, *, window: int = 0, seq_chunks: int = 1,
+                lane_capacity: bool = False) -> Tuple[Tensor, dict]:
     """One decode step.  token: (B,) ints; ``pos``: the absolute position
     (an int or a 0-d tensor) or a (B,) tensor of per-lane positions.
-    Returns (logits (B, vocab), the updated cache, a new tree: ``cache`` is
-    not written)."""
+    ``lane_capacity`` gives an MoE layer's experts a slot for every lane
+    (``moe.capacity``), so no lane's token drops.  Returns (logits (B,
+    vocab), the updated cache, a new tree: ``cache`` is not written)."""
     x = M.embedding_apply(params["embed"], token[:, None], act_dtype(cfg))
     # once a step, on the device; no layer reads the position back
     pos = A.position(pos, x.device)
@@ -350,7 +354,8 @@ def decode_step(params: dict, cfg: ArchConfig, token: Tensor, cache: dict,
                     seq_chunks=seq_chunks)
             else:
                 out, new_c[f"l{i}"] = S.mamba_step(lp["mamba"], h, lc, cfg)
-            x, _ = _mlp_block(lp, x + out, cfg, mk)
+            x, _ = _mlp_block(lp, x + out, cfg, mk,
+                              lane_capacity=lane_capacity)
         new.append(new_c)
     x = M.norm_apply(cfg.norm, params["final_norm"], x)
     return _readout(params, cfg, x)[:, 0], \

@@ -88,9 +88,11 @@ def make_microbatch_serve_step(cfg: ArchConfig, rcfg: RobustConfig, *,
     Each replica decodes once over the B lanes, lane b at ``rb.pos[b]``;
     the (n, B, V) logit stack is multiplied by ``rb.active`` (padded lanes
     contribute zeros to the replica distances) and fused with one
-    plan/apply.  An MoE layer dispatches the B lanes together; its expert
-    capacity (at least 8 slots) drops no token up to B = 8, as the JAX
-    package's one-lane dispatch drops none.
+    plan/apply.  An MoE layer dispatches the B lanes together with a slot
+    for every lane in each expert (``decode_fn(lane_capacity=True)``):
+    no lane's token drops at any B, as none drops from the JAX package's
+    one-lane dispatch.  Up to B = 8 that is the plain capacity, so the
+    bits there are the batched decode's.
     """
     rcfg.validate()
     if backend is None:
@@ -100,7 +102,8 @@ def make_microbatch_serve_step(cfg: ArchConfig, rcfg: RobustConfig, *,
     def step(stacked_params, stacked_caches, rb: RequestBatch):
         outs = [MD.decode_fn(_replica(stacked_params, i), cfg, rb.tokens,
                              _replica(stacked_caches, i), rb.pos,
-                             window=window, seq_chunks=seq_chunks)
+                             window=window, seq_chunks=seq_chunks,
+                             lane_capacity=True)
                 for i in range(rcfg.n_workers)]
         logits = torch.stack([lg for lg, _ in outs])
         caches = tree_map(lambda *xs: torch.stack(xs),

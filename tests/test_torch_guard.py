@@ -1,8 +1,10 @@
 """The port stands alone: nothing under ``src/repro_torch`` and nothing in
 ``chip_smoke.py``, ``tools/time_k1.py``, ``examples/quickstart_torch.py``,
-``examples/robust_serving_torch.py`` or
-``examples/streaming_at_scale_torch.py`` imports ``jax``, ``ml_dtypes`` or the JAX package ``repro``, and the smoke
-script refuses to run without a card or outside a checkout."""
+``examples/robust_serving_torch.py``,
+``examples/streaming_at_scale_torch.py`` or
+``examples/byzantine_training_torch.py`` imports ``jax``, ``ml_dtypes``
+or the JAX package ``repro``, and the smoke script refuses to run without
+a card or outside a checkout."""
 import ast
 import os
 import pathlib
@@ -18,7 +20,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "time_k1.py",
     REPO / "examples" / "quickstart_torch.py",
     REPO / "examples" / "robust_serving_torch.py",
-    REPO / "examples" / "streaming_at_scale_torch.py"]
+    REPO / "examples" / "streaming_at_scale_torch.py",
+    REPO / "examples" / "byzantine_training_torch.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -167,3 +170,16 @@ def test_the_serve_package_is_covered():
                  "core/theory.py", "dist/trainer.py", "models/attention.py",
                  "models/transformer.py", "models/encdec.py"):
         assert f"src/repro_torch/{want}" in names
+
+
+def test_the_sim_package_is_covered():
+    """The campaign simulator (``repro_torch.sim``), the part of
+    ``repro_torch.obs`` it reads, its CLI, its example and the data it
+    draws are among the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("sim/__init__.py", "sim/scenario.py", "sim/engine.py",
+                 "sim/telemetry.py", "sim/report.py", "obs/__init__.py",
+                 "obs/metrics.py", "obs/export.py", "launch/simulate.py",
+                 "data/synthetic.py", "data/__init__.py"):
+        assert f"src/repro_torch/{want}" in names
+    assert "examples/byzantine_training_torch.py" in names

@@ -40,6 +40,7 @@ from repro.data.synthetic import make_lm_batch
 from repro.dist import serving as JDS
 from repro.dist import trainer as JTR
 from repro.models import modules as JM
+from repro.models import moe as JMOE
 from repro.optim import optimizers as JO
 from repro.optim import schedules as JS
 from repro.serve import batching as JSB
@@ -51,6 +52,7 @@ from repro_torch.core import api as TAPI
 from repro_torch.core import theory as TTH
 from repro_torch.dist import serving as TDS
 from repro_torch.dist import trainer as TTR
+from repro_torch.models import moe as TMOE
 from repro_torch.optim import optimizers as TO
 from repro_torch.optim import schedules as TS
 from repro_torch.serve import batching as TSB
@@ -743,3 +745,74 @@ def test_lane_positions_must_match_the_batch():
     with pytest.raises(ValueError, match="2 lane positions for a batch of 3"):
         TMD.decode_fn(params, cfg, torch.tensor([1, 2, 3]), cache,
                       torch.tensor([4, 5]))
+
+
+# ------------------------------------------ MoE lanes beyond the capacity
+@dataclasses.dataclass(frozen=True)
+class _KeepingBackend(TAPI.AggregatorBackend):
+    """The backend, keeping every stack it fuses."""
+
+    inputs: list = dataclasses.field(default_factory=list, compare=False)
+
+    def __call__(self, grads):
+        self.inputs.append(grads)
+        return super().__call__(grads)
+
+
+@pytest.mark.parametrize("lanes", [9, 16])
+def test_microbatch_keeps_every_moe_lane(fp32_jax, lanes):
+    """Reduced qwen3-moe at its published capacity factor 1.25 (4 experts,
+    top-2), every lane the same token, position and cache, so that all B
+    lanes route to the same two experts: JAX decodes each lane alone and
+    drops nothing; the port's microbatch must keep every lane's token
+    too.  Before, each expert held capacity(B) slots: 8 at B = 9, so the
+    ninth lane lost its expert output (capacity(16) is 16 already).
+    Replica logits within 1e-4 relative of JAX's one-lane decodes (caches
+    widened to fp32), the fused logits the port's aggregation of those
+    bit for bit, within 1e-5 relative of JAX's aggregation of them and
+    within JAX's test bound (5e-2) of JAX's step; the caches within
+    1e-5."""
+    def moe_cfg(cfg):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.25))
+
+    jcfg = moe_cfg(jget("qwen3-moe-30b-a3b").reduced())
+    tcfg = dataclasses.replace(
+        moe_cfg(get_config("qwen3-moe-30b-a3b").reduced()), dtype="float32")
+    assert TMOE.capacity(lanes, tcfg.moe) == \
+        JMOE.capacity(lanes, jcfg.moe) == (16 if lanes == 16 else 8)
+    jr = JRobust(n_workers=MB_N, f=MB_F)
+    tr = RobustConfig(n_workers=MB_N, f=MB_F)
+    jbackend = JAPI.AggregatorBackend.for_config(jr)
+    tbackend = _KeepingBackend.for_config(tr)
+    seq, cache_len = 6, 12
+    params, jstack, tstack = _replicas(jcfg)
+    batch = JMD.make_batch(jcfg, "prefill", 1, seq, key=KEY)
+    one = [JMD.prefill_fn(p, jcfg, batch, chunk_q=seq,
+                          cache_len=cache_len)[1] for p in params]
+    jcaches = jax.tree.map(
+        lambda *xs: jnp.repeat(jnp.stack(xs), lanes, axis=2).astype(
+            jnp.float32), *one)
+    tcaches = tree_map(lambda t: t.float(), TMD.cache_from_jax(
+        _jcache_np(jcaches), device="cpu"))
+    jrb = JSB.pack_requests([5] * lanes, [seq] * lanes, size=lanes)
+    trb = TSB.pack_requests([5] * lanes, [seq] * lanes, size=lanes,
+                            device="cpu")
+    jfused, jnew = JSB.make_microbatch_serve_step(jcfg, jr)(
+        jstack, jcaches, jrb)
+    tfused, tnew = TSB.make_microbatch_serve_step(
+        tcfg, tr, backend=tbackend)(tstack, tcaches, trb)
+    (trep,) = tbackend.inputs
+    assert tuple(trep.shape) == (MB_N, lanes, tcfg.vocab_size)
+    decode = jax.jit(lambda p, tok, c, pos: JMD.decode_fn(
+        p, jcfg, tok, c, pos)[0])
+    for i in range(MB_N):
+        lane = jax.tree.map(lambda x: x[i, :, :1], jcaches)
+        want = decode(params[i], jrb.tokens[:1], lane, jrb.pos[0])[0]
+        for b in range(lanes):
+            _close(trep[i, b], want, 1e-4)
+    assert torch.equal(tfused, TAPI.AggregatorBackend.for_config(tr)(trep))
+    _close(tfused, jbackend(jnp.asarray(trep.numpy())), 1e-5)
+    np.testing.assert_allclose(_np(tfused), _np(jfused), rtol=0, atol=5e-2)
+    for t, j in zip(tree_leaves(tnew), jax.tree.leaves(jnew)):
+        _close(t, j, 1e-5)
