@@ -396,6 +396,37 @@ The campaign phases (``repro_torch.sim``, after S1), kernels on:
   campaigns' K1, K2 and K5 (the codec sweep's bf16 and int8 cells), every
   K2 launch at its theta (5; 3 in the groups of 7).
 
+The observability phases (``repro_torch.obs``, after S1), kernels on:
+
+* O1: ``launch/train.py``'s ``run_state`` with ``--obs`` at the training
+  phase's flags: records and parameters bit for bit the training phase's,
+  K1 and K2 once per leaf per step (theta = 5) and nothing else; the
+  ``obs.v1`` snapshot valid with ``rounds`` 3, the ring (stats, plan,
+  apply) x 3 in order, the apply payloads the run's aggregate norms, the
+  ``agg_grad_norm`` histogram summing to 3; the Chrome trace parses and
+  ``launch/obs_report.py --validate`` exits 0 on the two files; the
+  ``mstate`` saved and restored onto the card bit for bit.  Then the step
+  with and without obs timed (A B B A, medians) and one of each traced
+  (the kernel launches each makes), against the JAX package's 3 % budget,
+  printed, not gated;
+* O2: the record ops (``inc``, ``set_gauge``, ``ema_gauge``, a vector
+  ``observe``, ``record`` past the ring's wrap) on CUDA tensors under
+  ``torch.cuda.set_sync_debug_mode("error")``: no synchronisation, the
+  values as recomputed on the host;
+* O3: the async trainer with obs on S1's schedule in one run (3 fresh
+  rounds, then ASYNC_LATE): ``admitted``, ``overstale_slots`` (4) and
+  ``degraded`` (1) the schedule's, the ``staleness_age`` histogram one
+  entry a slot and round, four spans a round with select_plan's payload
+  the round's ``plan_reused``;
+* O4: C2's defended grouped smoke campaign (``--hier g=7 --workers 21 --f
+  1``, TINY) through ``run_campaign(obs=)``: K1 and K2 3 per leaf per step
+  (theta = 3), the report's ``obs`` snapshot valid, the spans per level
+  (the inner triple at payload 3, the outer at 1, then the step's apply);
+* O5: ``launch/obs_report.py --kernels`` on the card and
+  ``obs.profile_points``: a record per launch of K1, K5 and K2 at both of
+  its points, each with its launch configuration and ptxas's registers,
+  shared memory and spills, printed.
+
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
 route or a serving phase and read just after it (``launches_by_phase``
@@ -629,6 +660,9 @@ MOE_CAPACITY_FACTOR = 1.25
 #: C1, a campaign through repro_torch.sim at the training configuration:
 #: (steps, attack) of its two phases
 CAMPAIGN_PHASES = ((2, "none"), (3, "inf"))
+#: O1's timing of the training step with and without obs: rounds of
+#: A B B A after a warm-up step each
+OBS_TIMING_PAIRS = 3
 #: C2, the campaign CLI's three acceptance campaigns at its TINY model:
 #: (name, extra flags, the inner plans' theta)
 SIM_SMOKES = (("switch", (), THETA_MAIN),
@@ -3755,7 +3789,7 @@ def hier_training(torch, power, train_hist, train_params, worst_k5):
 
 # ------------------------------------------------- the async service (serve)
 def async_run(torch, label, late, steps_flag, keep_round=None,
-              trace_round=None):
+              trace_round=None, obs=None):
     """``serve.make_async_train_step`` on the training phase's flags
     (``--steps steps_flag`` for the learning-rate schedule), one round a
     tuple of ``late`` worker rows, its batches, seeds and parameters the
@@ -3765,7 +3799,7 @@ def async_run(torch, label, late, steps_flag, keep_round=None,
     after round ``keep_round`` (None: none kept), each round's host
     seconds (round ``trace_round`` under ``torch.profiler``: its numbers
     from :func:`log_profile` in the last record's ``trace``), the
-    service)."""
+    service).  ``obs``: the step's ``obs.ObsConfig`` (O3's registry)."""
     from repro_torch import models as MD
     from repro_torch.core import api
     from repro_torch.dist import init_train_state
@@ -3784,7 +3818,7 @@ def async_run(torch, label, late, steps_flag, keep_round=None,
     opt = make_optimizer(args.optimizer, momentum=0.9)
     step = make_async_train_step(cfg, rcfg, opt, lr_fn, tau=ASYNC_TAU,
                                  chunk_q=min(args.seq, 512),
-                                 attack=args.attack, telemetry=True)
+                                 attack=args.attack, telemetry=True, obs=obs)
     svc = AsyncAggService(api.AggregatorBackend.for_config(
         rcfg, needs_dists=True), ASYNC_TAU)
     params = MD.init_model(cfg, seed=args.seed, device=device)
@@ -4537,6 +4571,361 @@ def campaign_smokes(torch, power):
     return counts_by, out
 
 
+def mstate_bits(torch, ms):
+    """Every tensor of an ``mstate`` in checkpoint key order, on the host."""
+    m, t = ms["m"], ms["t"]
+    out = []
+    for group in (m.counters, m.gauges, m.hists):
+        out += [group[k].cpu() for k in sorted(group)]
+    return out + [t.head.cpu(), t.slots.cpu()]
+
+
+def obs_step_timing(torch, power):
+    """The training phase's step with and without ``obs`` (the launcher's
+    ``make_trainer`` of the flags with and without ``--obs``), each from
+    its own copy of the parameters: after one warm-up step each,
+    OBS_TIMING_PAIRS rounds of A B B A (host clock, synchronised), the
+    medians; then one more step of each under ``torch.profiler``: the
+    kernel launches each made.  Printed against the 3 % budget, not
+    gated."""
+    from repro_torch import models as MD
+    from repro_torch.dist import init_train_state
+    from repro_torch.launch import train
+    from repro_torch.optim import warmup_cosine
+    from torch.profiler import ProfilerActivity, profile
+    sides = {}
+    for name, extra in (("off", []), ("on", ["--obs"])):
+        args = train.parse_args(TRAIN_ARGS + extra)
+        cfg = MD.arch_config(args.arch, layers=args.layers)
+        lr_fn = warmup_cosine(args.lr, warmup=1, total_steps=args.steps)
+        opt, step = train.make_trainer(args, cfg, train.robust_config(args),
+                                       lr_fn)
+        params = MD.init_model(cfg, seed=args.seed, device="cuda")
+        sides[name] = [step, params, init_train_state(opt, params),
+                       train.worker_batches(args, cfg,
+                                            torch.device("cuda")), []]
+
+    def one(name, keep=True):
+        step, params, state, data, secs = sides[name]
+        wb = next(data)
+        dt, (params, state, _) = wall_s(
+            torch, lambda: step(params, state, wb, 0))
+        sides[name][1:3] = [params, state]
+        if keep:
+            secs.append(dt)
+
+    one("off", keep=False)
+    one("on", keep=False)
+    for _ in range(OBS_TIMING_PAIRS):
+        for name in ("off", "on", "on", "off"):
+            one(name)
+    launches = {}
+    for name in ("off", "on"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one(name, keep=False)
+        launches[name] = sum(
+            1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    med = {k: statistics.median(v[4]) for k, v in sides.items()}
+    out = {"step_s_off": med["off"], "step_s_on": med["on"],
+           "overhead": med["on"] / med["off"] - 1.0,
+           "step_s_all": {k: v[4] for k, v in sides.items()},
+           "launches_off": launches["off"], "launches_on": launches["on"],
+           "extra_launches": launches["on"] - launches["off"]}
+    del sides
+    torch.cuda.empty_cache()
+    log(f"O1 timing: steady step {med['off']:.4f} s without obs, "
+        f"{med['on']:.4f} s with ({100 * out['overhead']:+.2f} % against "
+        f"the 3 % budget; medians of {2 * OBS_TIMING_PAIRS} steps each, "
+        f"A B B A); device kernels a traced step {launches['off']} without, "
+        f"{launches['on']} with (+{out['extra_launches']}); card {power}")
+    return out
+
+
+def obs_training(torch, power, train_hist, train_params):
+    """O1, ``launch/train.py``'s ``run_state`` with ``--obs`` at the
+    training configuration: the records and parameters bit for bit the
+    training phase's, K1 and K2 once per leaf per step (theta = 5) and
+    nothing else; the snapshot validates, ``rounds`` is 3, the ring holds
+    (stats, plan, apply) x 3 in order, the ``agg_grad_norm`` histogram
+    sums to 3, the trace parses and ``obs_report --validate`` exits 0 on
+    the two files; the ``mstate`` through ``save`` / ``restore`` onto the
+    card bit for bit; then :func:`obs_step_timing`.  Returns (counts,
+    numbers, the snapshot's path)."""
+    import tempfile
+    from repro_torch import obs as OBS
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.kernels import ops
+    from repro_torch.launch import obs_report, train
+    from repro_torch.tree import tree_leaves
+    label = "O1 training --obs"
+    work = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    snap_path = os.path.join(work, "obs_snapshot.json")
+    trace_path = os.path.join(work, "obs_trace.json")
+    tee = Tee(sys.stdout)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        params, hist, state = train.run_state(TRAIN_ARGS + [
+            "--obs", "--obs-json", snap_path, "--obs-trace", trace_path])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    leaves = len(tree_leaves(params))
+    steps = len(hist)
+    want = {**NO_KERNELS, "pairwise_stats": leaves * steps,
+            "fused_select": leaves * steps}
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    variants = k2_variant_check(label, counts["fused_select"])
+    same_run(torch, label, hist, params, train_hist, train_params)
+    check("[train] obs: 9 span records" in tee.kept.getvalue(),
+          f"{label}: no obs line")
+    with open(snap_path) as fh:
+        snap = json.load(fh)
+    problems = OBS.validate_snapshot(snap)
+    check(problems == [], f"{label}: snapshot problems {problems}")
+    m = snap["metrics"]
+    check(m["counters"] == {"rounds": 3.0}, f"{label}: counters "
+          f"{m['counters']}")
+    recs = snap["trace"]["records"]
+    order = [(r["round"], r["phase"]) for r in recs]
+    check(order == [(i, p) for i in range(3)
+                    for p in ("stats", "plan", "apply")],
+          f"{label}: ring {order}")
+    check(sum(m["hists"]["agg_grad_norm"]["counts"]) == 3,
+          f"{label}: histogram {m['hists']['agg_grad_norm']}")
+    gnorms = [r["payload"] for r in recs if r["phase"] == "apply"]
+    check(gnorms == [rec["agg_grad_norm"] for rec in train_hist],
+          f"{label}: apply payloads {gnorms}, the training phase's norms "
+          f"{[rec['agg_grad_norm'] for rec in train_hist]}")
+    with open(trace_path) as fh:
+        n_events = len(json.load(fh)["traceEvents"])
+    with contextlib.redirect_stdout(io.StringIO()) as rep:
+        rc = obs_report.main(["--snapshot", snap_path, "--trace",
+                              trace_path, "--validate"])
+    check(rc == 0 and "[obs_report] OK" in rep.getvalue(),
+          f"{label}: obs_report --validate exit {rc}: {rep.getvalue()}")
+    t0 = time.perf_counter()
+    save(work, 0, {"mstate": state.mstate})
+    like = {"mstate": OBS.init_train_obs(
+        OBS.ObsConfig(enabled=True, ring=state.mstate["t"].capacity), N,
+        telemetry=True, device="cuda")}
+    back = restore(work, 0, like)["mstate"]
+    ckpt_s = time.perf_counter() - t0
+    check(all(bits_equal(torch, a, b) for a, b in zip(
+        mstate_bits(torch, back), mstate_bits(torch, state.mstate))),
+        f"{label}: the mstate after save / restore differs")
+    del params, state, back
+    torch.cuda.empty_cache()
+    out = {"wall_s": wall, "launches": counts, "k2_variants": variants,
+           "trace_events": n_events, "mstate_save_restore_s": ckpt_s,
+           "step_s": [rec["seconds"] for rec in hist]}
+    log(f"{label}: records and parameters bit for bit the training "
+        f"phase's; launches {counts}; snapshot valid (rounds 3, 9 spans, "
+        f"histogram 3), {n_events} trace events, obs_report --validate "
+        f"exit 0; mstate save / restore bit for bit in {ckpt_s:.3f}s; "
+        f"wall {wall:.1f}s; card {power}")
+    out.update(obs_step_timing(torch, power))
+    return counts, out, snap_path
+
+
+def obs_sync_free(torch, power):
+    """O2, the record ops on CUDA tensors under
+    ``torch.cuda.set_sync_debug_mode("error")``: ``inc`` (a number and a
+    tensor), ``set_gauge``, ``ema_gauge``, ``observe`` of a vector and of
+    a scalar, and ``record`` (a number's and a tensor's payload), past the
+    ring's wrap.  Any synchronisation raises; after it, the values
+    against their host recomputation."""
+    from repro_torch import obs as OBS
+    spec = OBS.serve_spec(N, ASYNC_TAU, telemetry=True)
+    m = OBS.init_metrics(spec, device="cuda")
+    t = OBS.init_trace(4, device="cuda")
+    ages = torch.tensor([0, 1, 2, 0, 3, 1, 0, 0, 2, 1, 0],
+                        dtype=torch.int32, device="cuda")
+    gnorm = torch.tensor(0.75, device="cuda")
+    sel = torch.linspace(0, 1, N, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(6):
+            m = OBS.inc(m, "rounds")
+            m = OBS.inc(m, "admitted", torch.sum(ages == 0).float())
+            m = OBS.set_gauge(m, "loss", gnorm * 2)
+            m = OBS.ema_gauge(m, "suspicion", sel, 0.9)
+            m = OBS.observe(m, "staleness_age", ages)
+            m = OBS.observe(m, "agg_grad_norm", gnorm)
+            t = OBS.record(t, OBS.PH_PLAN, i, gnorm if i % 2 else 0.5)
+    except RuntimeError as e:
+        raise SmokeFailure(f"O2: a record op synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = OBS.metrics_to_json(m)
+    want_age = [6 * int((ages.cpu() == a).sum()) for a in (0, 1)]
+    want_age.append(6 * int((ages.cpu() >= 2).sum()))
+    check(got["counters"]["rounds"] == 6.0 and
+          got["counters"]["admitted"] == 6.0 * 5,
+          f"O2: counters {got['counters']}")
+    check(got["hists"]["staleness_age"]["counts"] == want_age,
+          f"O2: ages {got['hists']['staleness_age']}, want {want_age}")
+    check(got["gauges"]["loss"] == 1.5, f"O2: loss {got['gauges']['loss']}")
+    want_s = [(1 - 0.9 ** 6) * v for v in sel.cpu().tolist()]
+    check(max(abs(a - b) for a, b in zip(got["gauges"]["suspicion"],
+                                         want_s)) < 1e-6,
+          f"O2: suspicion {got['gauges']['suspicion']}")
+    recs = OBS.drain(t)
+    check([r["seq"] for r in recs] == [2, 3, 4, 5] and
+          [r["payload"] for r in recs] == [0.5, 0.75, 0.5, 0.75],
+          f"O2: ring {recs}")
+    log(f"O2: inc, set_gauge, ema_gauge, observe and record on the card "
+        f"under set_sync_debug_mode('error'): no synchronisation; values "
+        f"as recomputed on the host; card {power}")
+    return {"ops": 6 * 7, "synchronisations": 0}
+
+
+def obs_async(torch, power):
+    """O3, the async trainer with ``obs`` on S1's schedule in one run:
+    ASYNC_FRESH_ROUNDS all-fresh rounds, then ASYNC_LATE.  The counters
+    are the schedule's (``admitted`` the fresh slots, ``overstale_slots``
+    the sum of ``n_overstale``, ``degraded`` the reused plans), the
+    ``staleness_age`` histogram one entry a slot and round, and each round
+    four spans (stats, plan, select_plan, apply), select_plan's payload
+    the round's ``plan_reused``.  Returns (counts, numbers)."""
+    from repro_torch import obs as OBS
+    late = ((),) * ASYNC_FRESH_ROUNDS + ASYNC_LATE
+    rounds = len(late)
+    recs, _, counts, params, state, _, _ = async_run(
+        torch, "O3 async --obs", late, rounds, keep_round=rounds - 1,
+        obs=OBS.ObsConfig(enabled=True, ring=4 * rounds))
+    del params
+    snap = OBS.snapshot(metrics=state.mstate["m"],
+                        trace_records=OBS.drain(state.mstate["t"]))
+    check(OBS.validate_snapshot(snap) == [], "O3: snapshot invalid")
+    want = {"rounds": float(rounds),
+            "admitted": float(N * rounds - sum(len(x) for x in late)),
+            "overstale_slots": float(sum(r["n_overstale"] for r in recs)),
+            "degraded": float(sum(r["plan_reused"] for r in recs))}
+    got = snap["metrics"]["counters"]
+    check(got == want and want["overstale_slots"] == 4.0 and
+          want["degraded"] == 1.0, f"O3: counters {got}, want {want}")
+    ages = snap["metrics"]["hists"]["staleness_age"]["counts"]
+    check(sum(ages) == N * rounds, f"O3: staleness_age {ages}")
+    spans = snap["trace"]["records"]
+    check([(r["round"], r["phase"]) for r in spans] ==
+          [(i, p) for i in range(rounds)
+           for p in ("stats", "plan", "select_plan", "apply")],
+          f"O3: spans {[(r['round'], r['phase']) for r in spans]}")
+    reused = [r["payload"] for r in spans if r["phase"] == "select_plan"]
+    check(reused == [float(r["plan_reused"]) for r in recs],
+          f"O3: select_plan payloads {reused}")
+    del state
+    torch.cuda.empty_cache()
+    out = {"counters": got, "staleness_age": ages, "launches": counts}
+    log(f"O3: {rounds} async rounds with obs: counters {got}, staleness "
+        f"ages {ages}, 4 spans a round, select_plan payloads {reused}; "
+        f"launches {counts}; card {power}")
+    return counts, out
+
+
+def obs_campaign(torch, power):
+    """O4, C2's defended grouped smoke campaign (``--hier g=7 --workers 21
+    --f 1`` on the CLI's TINY model: 6 steps ``none``, 6
+    ``little_is_enough:z=4.0``) through ``run_campaign(obs=)``: K1 and K2
+    3 per leaf per step (theta = 3); the report carries an ``obs``
+    snapshot that validates, ``rounds`` the step count, and each step's
+    spans per level: the inner triple (payload 3, the groups), the outer
+    triple (payload 1), then the step's apply.  Returns (counts,
+    numbers)."""
+    from repro_torch import models as MD
+    from repro_torch import obs as OBS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+    from repro_torch.sim import AttackPhase, AttackSchedule, Scenario
+    from repro_torch.sim import report, run_campaign
+    from repro_torch.sim.scenario import TINY
+    from repro_torch.tree import tree_leaves
+    label = "O4 grouped campaign --obs"
+    k = simulate.HIER_SMOKE_STEPS
+    sc = Scenario(name="hier-defended", schedule=AttackSchedule((
+        AttackPhase(steps=k, attack="none"),
+        AttackPhase(steps=k, attack="little_is_enough:z=4.0"))),
+        n_workers=HIER_N, f=HIER_F, hier_g=HIER_G)
+    leaves = len(tree_leaves(MD.init_model(TINY, device="cuda")))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = run_campaign(sc, device="cuda",
+                     obs=OBS.ObsConfig(enabled=True, ring=8 * 2 * k))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    groups = -(-HIER_N // HIER_G)
+    want = {**NO_KERNELS, "pairwise_stats": leaves * 2 * k * groups,
+            "fused_select": leaves * 2 * k * groups}
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    variants = k2_variant_check(label, counts["fused_select"], THETA_HIER)
+    doc = report.result_to_json(r)
+    snap = doc.get("obs")
+    check(snap is not None and OBS.validate_snapshot(snap) == [],
+          f"{label}: the report's obs snapshot is missing or invalid")
+    check(snap["metrics"]["counters"] == {"rounds": float(2 * k)},
+          f"{label}: counters {snap['metrics']['counters']}")
+    spans = snap["trace"]["records"]
+    want_spans = [(i, p, g) for i in range(2 * k)
+                  for g in (groups, 1) for p in ("stats", "plan", "apply")]
+    got_spans = [(s["round"], s["phase"], s["payload"]) for s in spans
+                 if not (s["phase"] == "apply" and
+                         s["payload"] not in (groups, 1))]
+    check(got_spans == want_spans and len(spans) == 7 * 2 * k,
+          f"{label}: spans {[(s['round'], s['phase']) for s in spans]}")
+    out = {"wall_s": wall, "launches": counts, "k2_variants": variants,
+           "spans": len(spans)}
+    log(f"{label}: {2 * k} steps, launches {counts}, K2 variants "
+        f"{variants}; the report's obs snapshot valid, rounds {2 * k}, "
+        f"{len(spans)} spans (per step the inner triple at payload "
+        f"{groups}, the outer at 1, the apply); {wall:.1f}s; card {power}")
+    return counts, out
+
+
+def obs_kernel_report(torch, power, snap_path):
+    """O5, ``launch/obs_report.py --kernels`` on the card (through its
+    ``main``, on O1's snapshot), and ``obs.profile_points`` at its
+    KERNEL_POINTS: a record per launch of K1, K5 and K2 at both points,
+    each on the cuda route with its launch configuration and ptxas's
+    registers, shared memory, stack frame and spills for every kernel
+    function the configuration launches.  Returns (counts, records)."""
+    from repro_torch import obs as OBS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import obs_report
+    label = "O5 obs_report --kernels"
+    tee = Tee(sys.stdout)
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(tee):
+        rc = obs_report.main(["--snapshot", snap_path, "--kernels"])
+    counts = ops.launch_counts()
+    text = tee.kept.getvalue()
+    check(rc == 0 and text.count("[obs_report] kernel ") == 6,
+          f"{label}: exit {rc}")
+    points = obs_report.KERNEL_POINTS
+    want = {**NO_KERNELS, "pairwise_stats": len(points),
+            "dequant_stats": len(points), "fused_select": len(points)}
+    check(counts == want, f"{label}: launches {counts}, want {want}")
+    recs = OBS.profile_points(points, device="cuda")
+    check([r["kernel"] for r in recs] ==
+          ["pairwise_stats", "dequant_stats", "fused_select"] * len(points),
+          f"{label}: records {[r['kernel'] for r in recs]}")
+    # the functions each launch runs: the gram kernel of its row tile and
+    # loader and the finalize (K1, K5), the kernel of its theta (K2)
+    n_fns = {"pairwise_stats": 2, "dequant_stats": 2, "fused_select": 1}
+    for r in recs:
+        check(r["route"] == "cuda" and r["ptxas"] and
+              len(r["ptxas"]) == n_fns[r["kernel"]] and all(
+                  v["registers"] > 0 for v in r["ptxas"].values()),
+              f"{label}: {r['kernel']} at n = {r['n']}: ptxas report "
+              f"{r['ptxas']}")
+    log(f"{label}: exit 0, {len(recs)} records; launches {counts}; card "
+        f"{power}")
+    return counts, recs
+
+
 def network_exchanges(slots):
     """Compare-exchanges of select_tile.cuh's Batcher odd-even merge sort
     on `slots` slots (its Network<N>::size())."""
@@ -4985,6 +5374,15 @@ def main():
                                                   params, worst_k5)
         counts_async, async_out = async_training(torch, power, history,
                                                  params)
+        t0 = time.perf_counter()
+        counts_o1, o1_out, snap_path = obs_training(torch, power, history,
+                                                    params)
+        o2_out = obs_sync_free(torch, power)
+        counts_o3, o3_out = obs_async(torch, power)
+        counts_o4, o4_out = obs_campaign(torch, power)
+        counts_o5, o5_recs = obs_kernel_report(torch, power, snap_path)
+        obs_s = time.perf_counter() - t0
+        log(f"observability phases O1-O5: {obs_s:.1f}s")
         del params
         counts_c1, c1_out = campaign(torch, power, len(shapes))
         counts_c2, c2_out = campaign_smokes(torch, power)
@@ -5018,6 +5416,10 @@ def main():
         counts_phase.update(counts_async)
         counts_phase.update(counts_c1)
         counts_phase.update(counts_c2)
+        counts_phase.update({"obs_training": counts_o1,
+                             "obs_async": counts_o3,
+                             "obs_campaign": counts_o4,
+                             "obs_kernels": counts_o5})
         t0 = time.perf_counter()
         counts_fam, fam_train = family_training(torch, power)
         log(f"decoder families, training: {time.perf_counter() - t0:.1f}s")
@@ -5156,7 +5558,9 @@ def main():
              "hier_wire_stream":
                  counts_hier["hier_wire_stream"]["dequant_stats"],
              # C2: the campaign CLI's codec sweep (bf16 and int8 cells)
-             "sim_switch": counts_c2["sim_switch"]["dequant_stats"]},
+             "sim_switch": counts_c2["sim_switch"]["dequant_stats"],
+             # O5: obs_report --kernels, one launch at each point
+             "obs_kernels": counts_o5["dequant_stats"]},
          "max_abs_err": worst_k5["max_abs"],
          # over every group's slice of H5's payload (in max_abs_err too)
          "hier_wire_max_abs_err": hier_numbers["hier_wire"][
@@ -5275,6 +5679,11 @@ def main():
         f"; S3 {json.dumps(load_out)}; card {power}")
     log(f"campaigns (repro_torch.sim): C1 {json.dumps(c1_out)}; C2 "
         f"{json.dumps(c2_out)}; card {power}")
+    log(f"observability (repro_torch.obs): O1 {json.dumps(o1_out)}; O2 "
+        f"{json.dumps(o2_out)}; O3 {json.dumps(o3_out)}; O4 "
+        f"{json.dumps(o4_out)}; {obs_s:.1f}s together; card {power}")
+    for rec in o5_recs:
+        log(f"O5 record: {json.dumps(rec, sort_keys=True)}")
     log(f"encoder-decoder (whisper-tiny): training {json.dumps(ed_train)}; "
         f"serving {json.dumps(ed_serve)}; the network variants at n = "
         f"{WIDE_N} {json.dumps(wide)}; card {power}")

@@ -6,6 +6,9 @@ renamed into place.  Each leaf is one array, keyed by its path joined with
 sorted order, dataclass and NamedTuple field names
 (``state|opt|mu|embed|table``), tuple and list indices
 (``state|tstates|0|...``); ``None`` and empty containers hold no leaf.
+A dataclass field marked static (``metadata={"static": True}``, as the
+registry's spec and the span ring's capacity are: JAX's meta fields) holds
+no leaf either; a restore takes it from ``like``.
 A dtype numpy cannot store (bfloat16, the float8 types) is stored as an
 unsigned bit view under ``key::dtype``.  So each package reads the
 other's files.
@@ -49,7 +52,8 @@ def _map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], node: Tree,
         return dataclasses.replace(node, **{
             fl.name: _map_with_path(fn, getattr(node, fl.name),
                                     path + (fl.name,))
-            for fl in dataclasses.fields(node)})
+            for fl in dataclasses.fields(node)
+            if not fl.metadata.get("static")})
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         return type(node)(*(_map_with_path(fn, getattr(node, name),
                                            path + (name,))

@@ -801,6 +801,10 @@ class AggregatorBackend:
     fused: "bool | str" = True
     needs_dists: bool = False          # force stats for distance-free rules
     mesh_ctx: Optional[MeshContext] = None
+    # the observability switchboard (obs.ObsConfig): every consumer of a
+    # backend (trainers, async service) reads the same config, so
+    # instrumentation cannot half-apply; None keeps them uninstrumented
+    obs: Optional[Any] = None
 
     @classmethod
     def for_config(cls, rcfg, **overrides) -> "AggregatorBackend":

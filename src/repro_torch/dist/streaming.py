@@ -47,6 +47,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch.comm import codecs as CC
 from repro_torch.configs.base import ArchConfig, RobustConfig
 from repro_torch.core import api
@@ -54,7 +55,7 @@ from repro_torch.core import attacks as ATK
 from repro_torch.dist.trainer import (
     ENCODE_STREAM, _derive_mesh_ctx, _resolve_codec, as_trainer_state,
     honest_dev_accumulate, honest_dev_finalize, inject_byzantine,
-    inject_wire, per_worker_grads)
+    inject_wire, per_worker_grads, record_step)
 from repro_torch.hier import aggregate as HA
 from repro_torch.hier.plan import HierPlan
 from repro_torch.optim.optimizers import Optimizer
@@ -77,7 +78,8 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                               coord_chunk: int = 0, telemetry: bool = False,
                               transforms: Sequence[api.Transform] = (),
                               shard_map_mesh=None, shard_map_axes=None,
-                              spmd: Optional[bool] = None, hier=None):
+                              spmd: Optional[bool] = None, hier=None,
+                              obs: Optional[OBS.ObsConfig] = None):
     """Build the streaming-trainer step, ``(params, state, batch, seed) ->
     (params, state, metrics)`` as the stacked trainer's.
 
@@ -102,9 +104,16 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
     the budget of ``hier.budget(rcfg.n_workers, rcfg.f)`` checked when the
     step is built.  Not composable with a mesh (JAX's refusal).
 
+    ``obs`` mirrors the stacked trainer: an enabled ``obs.ObsConfig``
+    records the stacked trainer's registry into ``state.mstate`` and, with
+    ``obs.trace``, one span a phase a step: stats and plan once pass 1 is
+    done (the plan's payload 1 when one plan serves every block, else 0),
+    apply after the update (payload: the aggregate's norm).  Disabled or
+    ``None``, the step dispatches the ops of the uninstrumented step.
+
     The step takes and returns a ``TrainerState`` (a bare ``OptState`` is
-    coerced); only its ``opt`` slot is live, and a state carrying
-    transform, attack or residual state is refused.
+    coerced); only its ``opt`` and ``mstate`` slots are live, and a state
+    carrying transform, attack or residual state is refused.
     """
     if scope not in ("block", "global"):
         raise ValueError(f"scope must be 'block' or 'global', got {scope!r}")
@@ -136,7 +145,8 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
     mesh_ctx = _derive_mesh_ctx(shard_map_mesh, shard_map_axes, spmd)
     backend = api.AggregatorBackend.for_config(
         rcfg, coord_chunk=coord_chunk, needs_dists=telemetry,
-        mesh_ctx=mesh_ctx)
+        mesh_ctx=mesh_ctx, obs=obs)
+    obs_live = OBS.obs_on(obs)
     # telemetry wants the score spectrum even for distance-free rules
     needs_stats = backend.aggregator.needs_dists or telemetry
     budget = inner = None
@@ -163,6 +173,10 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                 "the streaming trainer carries only the opt slot; a "
                 "TrainerState with live tstates/astate/cres belongs to "
                 "the stacked trainer (dist.make_train_step)")
+        if obs_live and state.mstate is None:
+            state = dataclasses.replace(state, mstate=OBS.init_train_obs(
+                obs, rcfg.n_workers, telemetry=telemetry,
+                device=tree_leaves(params)[0].device))
         keys = _block_keys(params)
         blocks = [None] if keys is None else keys
         # each block's first leaf in the whole tree's leaf order
@@ -236,6 +250,7 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
         elif hier is None and not needs_stats:
             # a distance-free rule's plan does not depend on the block
             plan = backend.plan(api.AggStats(n=rcfg.n_workers, f=rcfg.f))
+        state = pass_one_spans(state, plan)
 
         # pass 2, or block scope's only pass: the first block's losses are
         # the step's
@@ -310,6 +325,7 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
         for st in inner_stats:
             inner.validate(st.n, st.f)
             plans.append(inner.plan(st))
+        state = pass_one_spans(state, None)
         # pass 2: only each block's (n_groups, ...) stack survives it
         inter, honest, losses = {}, {}, None
         wire_total = 0
@@ -349,6 +365,17 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
         return finish(params, state, agg, losses, global_diag, [], dev_sq,
                       ref_sq, wire_total, leader_total)
 
+    def pass_one_spans(state, plan):
+        """The stats and plan spans of the step, once pass 1 is done: one
+        a phase, the plan's payload 1 when a plan serves every block."""
+        if not (obs_live and obs.trace):
+            return state
+        ms = state.mstate
+        t = OBS.record(ms["t"], OBS.PH_STATS, state.opt.step)
+        t = OBS.record(t, OBS.PH_PLAN, state.opt.step,
+                       0.0 if plan is None else 1.0)
+        return dataclasses.replace(state, mstate={**ms, "t": t})
+
     def finish(params, state, agg, losses, global_diag, diags, dev_sq,
                ref_sq, wire_total, leader_total):
         """The optimizer update and the metrics of a step."""
@@ -377,7 +404,9 @@ def make_streaming_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                 if hier is not None and codec_obj is not None:
                     diag["leader_wire_bytes"] = leader_total
                 metrics["telemetry"] = diag
-        new_state = dataclasses.replace(state, opt=new_opt)
+            mstate = record_step(state.mstate, obs, state.opt.step,
+                                 metrics) if obs_live else state.mstate
+        new_state = dataclasses.replace(state, opt=new_opt, mstate=mstate)
         return tree_map(lambda p: p.detach(), new_params), new_state, metrics
 
     return step

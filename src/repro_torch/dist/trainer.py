@@ -33,11 +33,12 @@ One train step:
 The step has signature ``(params, state, batch, seed) -> (params, state,
 metrics)``; ``state`` is a :class:`TrainerState` (``opt``; ``tstates``,
 one entry per transform; ``astate``, the adaptive attack's feedback
-state; ``cres``, the error-feedback residual, under an ``ef=1`` codec).
-The observability option of the JAX trainer is not ported yet.  The
-streaming trainer (``dist.streaming``) builds on the
-pieces here: :func:`per_worker_grads` of one block, the ``leaf_offset``
-of the injections, and the honest-deviation helpers.
+state; ``cres``, the error-feedback residual, under an ``ef=1`` codec;
+``mstate``, the observability registry and span ring, under an enabled
+``obs.ObsConfig``).  The streaming trainer (``dist.streaming``) builds on
+the pieces here: :func:`per_worker_grads` of one block, the
+``leaf_offset`` of the injections, the honest-deviation helpers and
+:func:`record_step`.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ import torch
 
 from repro_torch import comm as CM
 from repro_torch import models as MD
+from repro_torch import obs as OBS
 from repro_torch.configs.base import ArchConfig, RobustConfig
 from repro_torch.core import api
 from repro_torch.core import attacks as ATK
@@ -144,14 +146,19 @@ class TrainerState:
     leaves, ``None`` unless the codec has ``ef=1``) and ``bstate`` (the
     async bounded-staleness buffer, a ``serve.buffer.BufferState``, seeded
     by ``serve.service.with_buffer``; ``None`` on the synchronous
-    trainers).  ``mstate`` waits for the observability subsystem; the
-    checkpoint store saves the slots by field name (``state|astate|z``)."""
+    trainers) and ``mstate`` (the observability state, ``{"m":
+    obs.MetricsState, "t": obs.TraceState | None}``, ``None`` unless the
+    step was built with an enabled ``obs.ObsConfig``: the steps seed it on
+    their first step, the sim engine before its phase loop with
+    ``obs.init_train_obs``).  The checkpoint store saves the slots by
+    field name (``state|astate|z``, ``state|mstate|m|counters|rounds``)."""
 
     opt: OptState
     tstates: tuple = ()
     astate: Any = None
     cres: Any = None
     bstate: Any = None
+    mstate: Any = None
 
 
 def as_trainer_state(state) -> TrainerState:
@@ -281,6 +288,30 @@ def per_worker_grads(params: Tree, cfg: ArchConfig,
     return losses, tree_unflatten(sub, stacks)
 
 
+def record_step(mstate, obs: OBS.ObsConfig, obs_round, metrics
+                ) -> Dict[str, Any]:
+    """A synchronous step's records after its apply: ``rounds`` + 1, the
+    ``loss`` and ``agg_grad_norm`` gauges, the ``agg_grad_norm``
+    histogram, under telemetry (``metrics["telemetry"]``) ``byz_mass``
+    and the ``suspicion`` EMA of the selection, and the apply span
+    (payload: the aggregate's norm).  Shared by both trainers."""
+    m = OBS.inc(mstate["m"], "rounds")
+    m = OBS.set_gauge(m, "loss", metrics["loss"])
+    gnorm = metrics["agg_grad_norm"]
+    m = OBS.set_gauge(m, "agg_grad_norm", gnorm)
+    m = OBS.observe(m, "agg_grad_norm", gnorm)
+    diag = metrics.get("telemetry")
+    if diag is not None:
+        m = OBS.set_gauge(m, "byz_mass", diag["byz_mass"])
+        susp = m.gauges["suspicion"]
+        m = OBS.set_gauge(m, "suspicion", OBS.update_suspicion(
+            susp, diag["selection"].to(susp.device), obs.suspicion_ema))
+    t = mstate["t"]
+    if obs.trace:
+        t = OBS.record(t, OBS.PH_APPLY, obs_round, gnorm)
+    return {"m": m, "t": t}
+
+
 def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     lr_fn, *, window: int = 0, chunk_q: int = 1024,
                     attack: str = "none", attack_f: Optional[int] = None,
@@ -288,7 +319,8 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     codec=None, coord_chunk: int = 0,
                     telemetry: bool = False, shard_map_mesh=None,
                     shard_map_axes: Optional[Sequence[str]] = None,
-                    spmd: Optional[bool] = None, hier=None):
+                    spmd: Optional[bool] = None, hier=None,
+                    obs: Optional[OBS.ObsConfig] = None):
     """Build the stacked-trainer step.
 
     ``attack`` is a spec string (``core.attacks.get_attack``, or a wire
@@ -343,6 +375,17 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     updates from the plan's two-level selection weights; telemetry gains
     ``group_selection`` and, under a codec, ``leader_wire_bytes``.  Not
     composable with a mesh or an error-feedback codec (JAX's refusals).
+
+    ``obs`` (an enabled ``obs.ObsConfig``) makes the step record into the
+    registry in ``state.mstate`` (the ``rounds`` counter, the ``loss`` and
+    ``agg_grad_norm`` gauges, the ``agg_grad_norm`` histogram, and under
+    ``telemetry`` ``byz_mass`` and the ``suspicion`` EMA) and, with
+    ``obs.trace``, stats / plan / apply spans of round ``state.opt.step``
+    into its ring (the plan's payload its largest selection weight, the
+    apply's the aggregate's norm; under ``hier`` the grouped pipeline's
+    two span triples).  The records never read back to the host.
+    Disabled or ``None``, the step dispatches the ops of the
+    uninstrumented step.
     """
     rcfg.validate()
     transforms = tuple(transforms)
@@ -367,8 +410,10 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     # telemetry wants the score spectrum even for distance-free rules
     backend = api.AggregatorBackend.for_config(
         rcfg, coord_chunk=coord_chunk, needs_dists=telemetry,
-        mesh_ctx=mesh_ctx)
+        mesh_ctx=mesh_ctx, obs=obs)
     needs_dists = backend.aggregator.needs_dists or telemetry
+    obs_live = OBS.obs_on(obs)
+    obs_trace = obs_live and obs.trace
     if hier is not None:
         if mesh_ctx is not None:
             raise NotImplementedError(
@@ -386,6 +431,12 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
     def step(params, state: TrainerState, batch, seed: int = 0):
         losses, grads = per_worker_grads(params, cfg, batch, window=window,
                                          chunk_q=chunk_q)
+        mstate = state.mstate
+        if obs_live and mstate is None:
+            mstate = OBS.init_train_obs(obs, losses.shape[0],
+                                        telemetry=telemetry,
+                                        device=losses.device)
+        obs_round = state.opt.step
         astate, atk = state.astate, attack_fn
         if adaptive is not None:
             if astate is None:
@@ -422,11 +473,20 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                     stats_src, rcfg.f, hier, codec=codec_obj, seed=seed,
                     coord_chunk=coord_chunk, use_kernels=rcfg.use_kernels,
                     needs_dists=needs_dists,
-                    decoded=grads if stats_src is enc else None)
+                    decoded=grads if stats_src is enc else None,
+                    obs=obs, obs_state=mstate, obs_round=obs_round)
                 stats = hinfo["inner_stats"]
+                mstate = hinfo["obs_state"]
             else:
                 stats = backend.stats(rows(stats_src))
+                if obs_trace:
+                    mstate = {**mstate, "t": OBS.record(
+                        mstate["t"], OBS.PH_STATS, obs_round)}
                 plan = backend.plan(stats)
+                if obs_trace:
+                    mstate = {**mstate, "t": OBS.record(
+                        mstate["t"], OBS.PH_PLAN, obs_round,
+                        torch.max(plan.selection_weights()))}
                 agg = backend.apply(plan, rows(grads))
             if adaptive is not None:
                 astate = adaptive.update(astate, plan.selection_weights())
@@ -448,8 +508,11 @@ def make_train_step(cfg: ArchConfig, rcfg: RobustConfig, opt: Optimizer,
                 if hier is not None and codec_obj is not None:
                     diag["leader_wire_bytes"] = hinfo["leader_wire_bytes"]
                 metrics["telemetry"] = diag
+            if obs_live:
+                mstate = record_step(mstate, obs, obs_round, metrics)
         new_state = dataclasses.replace(state, opt=new_opt, tstates=tstates,
-                                        astate=astate, cres=cres)
+                                        astate=astate, cres=cres,
+                                        mstate=mstate)
         return tree_map(lambda p: p.detach(), new_params), new_state, metrics
 
     return step

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch.core import api
 from repro_torch.core.attacks import fold_seed
 from repro_torch.core.theory import FBudget
@@ -95,6 +96,9 @@ def hier_aggregate_tree(grads: Tree, f: int, cfg: GroupConfig, *,
                         fused: "bool | str" = True,
                         needs_dists: Optional[bool] = None,
                         decoded: Optional[Tree] = None,
+                        obs: Optional[OBS.ObsConfig] = None,
+                        obs_state: Optional[Dict[str, Any]] = None,
+                        obs_round=None,
                         ) -> Tuple[Tree, HierPlan, Dict[str, Any]]:
     """Aggregate a stacked gradient tree (or a wire container)
     hierarchically.
@@ -120,9 +124,26 @@ def hier_aggregate_tree(grads: Tree, f: int, cfg: GroupConfig, *,
     ``decoded``, which decoding each group's slice would give bit for
     bit; without it each group's slice is decoded by the apply.
 
-    The JAX function's ``obs`` / ``obs_state`` / ``obs_round`` span
-    arguments wait for the observability module's port.
+    ``obs`` / ``obs_state`` / ``obs_round`` thread the trainers' span
+    ring through the tree: with an enabled, tracing ``obs.ObsConfig`` each
+    level records its stats / plan / apply spans of round ``obs_round``
+    (payload: the level's group count, ``n_groups`` for the inner level
+    and 1 for the outer one) and ``info["obs_state"]`` carries the
+    updated state out; otherwise ``obs_state`` passes through untouched.
     """
+    obs_trace = (OBS.obs_on(obs) and obs.trace and obs_state is not None
+                 and obs_state.get("t") is not None)
+
+    def spans(st, payload):
+        """One level's stats / plan / apply triple."""
+        if not obs_trace:
+            return st
+        rnd = 0 if obs_round is None else obs_round
+        t = st["t"]
+        for phase in (OBS.PH_STATS, OBS.PH_PLAN, OBS.PH_APPLY):
+            t = OBS.record(t, phase, rnd, payload)
+        return {**st, "t": t}
+
     enc = api._as_encoded(grads)
     if enc is not None:
         from repro_torch.comm import codecs as CC
@@ -154,8 +175,11 @@ def hier_aggregate_tree(grads: Tree, f: int, cfg: GroupConfig, *,
         inner_stats.append(st)
         del sub, rows
 
+    # the inner level's triple, after the per-group loop
+    obs_state = spans(obs_state, budget.n_groups)
     info: Dict[str, Any] = {"inner_stats": tuple(inner_stats),
-                            "outer_stats": None, "leader_wire_bytes": 0}
+                            "outer_stats": None, "leader_wire_bytes": 0,
+                            "obs_state": obs_state}
     if budget.n_groups == 1:
         # g >= n is the flat rule: no outer level, no second hop
         return parts[0], HierPlan.build(budget, cfg, inner_plans, None), \
@@ -166,5 +190,7 @@ def hier_aggregate_tree(grads: Tree, f: int, cfg: GroupConfig, *,
     agg, op, ost, info["leader_wire_bytes"] = outer_aggregate(
         inter, budget, cfg, codec=codec, seed=seed, coord_chunk=coord_chunk,
         use_kernels=use_kernels, fused=fused)
+    # the outer level's triple over the (n_groups, ...) stack
+    info["obs_state"] = spans(obs_state, 1)
     info["outer_stats"] = ost
     return agg, HierPlan.build(budget, cfg, inner_plans, op), info

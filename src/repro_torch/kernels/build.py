@@ -5,8 +5,11 @@ Each ``csrc/<name>.cu`` exports a plain C entry point and is compiled by
 with ``ctypes``.  Libraries are named by a hash of their source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  The build
-directory is ``repro_torch/_build`` (ignored by git).  Nothing here runs
-at import: the CPU tests import every module of the port.
+directory is ``repro_torch/_build`` (ignored by git).  What ptxas reports
+for a library (``-Xptxas -v``: each kernel's registers, shared memory,
+stack frame and spills) is kept beside it (:func:`report_path`) and read
+by :func:`ptxas_report`.  Nothing here runs at import: the CPU tests
+import every module of the port.
 """
 from __future__ import annotations
 
@@ -14,11 +17,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -48,6 +52,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where the compiler's output of :func:`library_path`'s build is
+    kept."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def nvcc_command(name: str, out: Path) -> list:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
@@ -73,6 +83,9 @@ def build(names: Sequence[str] = KERNELS) -> Tuple[float, Dict[str, str]]:
         if proc.returncode != 0:
             failed.append(name)
         else:
+            # the report first: a library that exists has its report,
+            # unless it was built before reports were kept
+            report_path(name).write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
@@ -85,3 +98,41 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: {"registers", "smem_bytes", "stack_frame",
+    "spill_stores", "spill_loads"}} from nvcc's ``-Xptxas -v`` output (a
+    stack frame is local memory: an array the compiler could not keep in
+    registers; ``smem_bytes`` is static shared memory)."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "smem_bytes": 0, "stack_frame": 0,
+                         "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(s.group(1)) if s else 0
+    return out
+
+
+def ptxas_report(name: str) -> Optional[Dict[str, Dict[str, int]]]:
+    """:func:`parse_ptxas` of the kept report of ``csrc/<name>.cu``'s
+    library; None where there is none (nothing built here, or a library
+    built before reports were kept)."""
+    path = report_path(name)
+    return parse_ptxas(path.read_text()) if path.exists() else None

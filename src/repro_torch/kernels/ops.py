@@ -3,7 +3,9 @@ PyTorch version for a CPU tensor.
 
 The choice is made from the tensor's device alone.  There is no fallback:
 for a tensor that is not on the CPU the kernel launches or the wrapper
-raises.
+raises.  The five wrappers the JAX package hooks (K1, K5, K6, K7, K2)
+report each call to an installed ``obs.profile.KernelProfiler``, on both
+routes (``obs.profile.record_kernel``; a no-op without one).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.obs.profile import record_kernel
 from repro_torch.kernels.coord_select import check_coord_args, coord_select_cuda
 from repro_torch.kernels.dequant_stats import (check_dequant_args,
                                                check_dequant_rect_args,
@@ -39,8 +42,11 @@ def pairwise_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``core.api.finalize_dists`` after accumulating over leaves.
     """
     if x.device.type == "cpu":
+        record_kernel("pairwise_stats", "plain", x)
         return ref.pairwise_stats_ref(x)
-    return pairwise_stats_cuda(x)
+    out = pairwise_stats_cuda(x)
+    record_kernel("pairwise_stats", "cuda", x)
+    return out
 
 
 def dequant_stats(payload: torch.Tensor, mult: torch.Tensor
@@ -50,8 +56,11 @@ def dequant_stats(payload: torch.Tensor, mult: torch.Tensor
     sq-norms) of the decoded rows ``payload.float() * mult[:, None]``."""
     check_dequant_args(payload, mult)
     if payload.device.type == "cpu":
+        record_kernel("dequant_stats", "plain", payload, mult)
         return ref.dequant_stats_ref(payload, mult)
-    return dequant_stats_cuda(payload, mult)
+    out = dequant_stats_cuda(payload, mult)
+    record_kernel("dequant_stats", "cuda", payload, mult)
+    return out
 
 
 def pairwise_stats_rect(x_loc: torch.Tensor, x_full: torch.Tensor, *,
@@ -74,8 +83,11 @@ def pairwise_stats_rect(x_loc: torch.Tensor, x_full: torch.Tensor, *,
     ran."""
     check_rect_args(x_loc, x_full, n)
     if x_full.device.type == "cpu":
+        record_kernel("pairwise_stats_rect", "plain", x_loc, x_full, n=n)
         return ref.pairwise_stats_rect_ref(x_loc, x_full)
-    return pairwise_stats_rect_cuda(x_loc, x_full, n=n)
+    out = pairwise_stats_rect_cuda(x_loc, x_full, n=n)
+    record_kernel("pairwise_stats_rect", "cuda", x_loc, x_full, n=n)
+    return out
 
 
 def dequant_stats_rect(p_loc: torch.Tensor, m_loc: torch.Tensor,
@@ -88,9 +100,13 @@ def dequant_stats_rect(p_loc: torch.Tensor, m_loc: torch.Tensor,
     ``m_loc`` is ``m_full`` (the same tensors, no padding rows), the
     rectangular grid otherwise."""
     check_dequant_rect_args(p_loc, m_loc, p_full, m_full, n)
+    args = (p_loc, m_loc, p_full, m_full)
     if p_full.device.type == "cpu":
-        return ref.dequant_stats_rect_ref(p_loc, m_loc, p_full, m_full)
-    return dequant_stats_rect_cuda(p_loc, m_loc, p_full, m_full, n=n)
+        record_kernel("dequant_stats_rect", "plain", *args, n=n)
+        return ref.dequant_stats_rect_ref(*args)
+    out = dequant_stats_rect_cuda(*args, n=n)
+    record_kernel("dequant_stats_rect", "cuda", *args, n=n)
+    return out
 
 
 def pairwise_sqdist(x: torch.Tensor) -> torch.Tensor:
@@ -106,8 +122,11 @@ def fused_select(x: torch.Tensor, w_ext: torch.Tensor, w_agr: torch.Tensor,
     """Fused multi-Bulyan apply: (n, d) stack + (θ, n) plan -> (d,) fp32."""
     check_select_args(x, w_ext, w_agr, beta)
     if x.device.type == "cpu":
+        record_kernel("fused_select", "plain", x, w_ext, w_agr, beta)
         return ref.fused_select_ref(x, w_ext, w_agr, beta)
-    return fused_select_cuda(x, w_ext, w_agr, beta)
+    out = fused_select_cuda(x, w_ext, w_agr, beta)
+    record_kernel("fused_select", "cuda", x, w_ext, w_agr, beta)
+    return out
 
 
 def coord_select(g_ext: torch.Tensor, g_agr: torch.Tensor,

@@ -18,7 +18,12 @@ takes the streaming trainer (``dist.streaming``), which holds one
 parameter block's gradient stack at a time; ``stream_global`` gives the
 stacked trainer's step bit for bit.  ``--hier g=7`` aggregates in two
 levels (``repro_torch.hier``) on either trainer: within groups of at most
-7 workers, then over the group aggregates.
+7 workers, then over the group aggregates.  ``--obs`` records the
+observability registry and span ring (``repro_torch.obs``) in the step,
+brackets each step in a host wall-clock span (the step and its
+``torch.cuda.synchronize()``), and after the run writes an ``obs.v1``
+snapshot (``--obs-json``) and a Chrome / Perfetto trace (``--obs-trace``)
+that ``launch/obs_report.py`` reads.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
@@ -38,6 +43,8 @@ Usage:
       --steps 3 --workers 11 --f 2 --attack inf
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --layers 2 --steps 3 --workers 21 --f 1 --hier g=7 --attack inf
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --layers 2 --steps 3 --attack inf --obs
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen2-1.5b --layers 2 --steps 3 --mesh host
 """
@@ -46,6 +53,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import time
+from contextlib import nullcontext
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
 
@@ -53,6 +61,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import models as MD
+from repro_torch import obs as OBS
 from repro_torch.checkpoint import save
 from repro_torch.comm import hier_wire_stats, wire_stats
 from repro_torch.configs import ARCH_NAMES, ArchConfig, RobustConfig
@@ -117,6 +126,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="save {'params': ...} here after the last step "
                          "(repro_torch.checkpoint, the JAX package's "
                          "format)")
+    ap.add_argument("--obs", action="store_true",
+                    help="runtime observability: the metrics registry and "
+                         "span ring in the step, host wall-clock spans "
+                         "around it; drains to an obs.v1 snapshot and a "
+                         "Perfetto/Chrome trace after the run")
+    ap.add_argument("--obs-json", default="obs_snapshot.json",
+                    help="obs.v1 snapshot output path (with --obs)")
+    ap.add_argument("--obs-trace", default="obs_trace.json",
+                    help="Chrome-trace output path (with --obs); open at "
+                         "https://ui.perfetto.dev")
     ap.add_argument("--log-every", type=int, default=1)
     return ap.parse_args(argv)
 
@@ -151,9 +170,13 @@ def make_trainer(args: argparse.Namespace, cfg: ArchConfig,
     opt = make_optimizer(args.optimizer,
                          **({"momentum": 0.9} if args.optimizer == "sgd"
                             else {}))
+    # JAX's ring: 4 records a step, at least 128 (a step writes 3, 6
+    # under --hier)
+    obs = OBS.ObsConfig(enabled=True, ring=max(128, 4 * args.steps)) \
+        if args.obs else None
     kw = dict(chunk_q=min(args.seq, 512), attack=args.attack,
               codec=args.codec, telemetry=True, shard_map_mesh=mesh,
-              hier=hier)
+              hier=hier, obs=obs)
     if args.trainer == "stacked":
         return opt, make_train_step(cfg, rcfg, opt, lr_fn, **kw)
     return opt, make_streaming_train_step(
@@ -183,7 +206,14 @@ def worker_batches(args: argparse.Namespace, cfg: ArchConfig,
 
 def run(argv: Optional[Sequence[str]] = None
         ) -> Tuple[Any, List[Dict[str, Any]]]:
-    """Train as the flags say.  Returns the final parameters and one record
+    """:func:`run_state` without the final trainer state."""
+    params, history, _ = run_state(argv)
+    return params, history
+
+
+def run_state(argv: Optional[Sequence[str]] = None
+              ) -> Tuple[Any, List[Dict[str, Any]], Any]:
+    """Train as the flags say.  Returns the final parameters, one record
     per step (``loss``, ``loss_per_worker``, ``byz_mass``, ``selection``,
     the plan's (n,) selection weights, ``honest_dev``, ``agg_grad_norm``,
     ``lr``, ``seconds``; under ``--hier`` also ``group_selection``, the
@@ -192,7 +222,8 @@ def run(argv: Optional[Sequence[str]] = None
     with ``ef=1``, ``residual_max_abs``, the largest magnitude in the
     error-feedback residual after the step; under an adaptive attack also
     ``astate``, the attack's state after the step as host floats and
-    lists).  Under ``--mesh host`` every rank
+    lists) and the final ``TrainerState`` (its ``mstate`` the registry and
+    ring under ``--obs``).  Under ``--mesh host`` every rank
     returns them; a process group that ``run`` started is destroyed when
     it returns or raises, one that was up before is left up."""
     args = parse_args(argv)
@@ -217,8 +248,9 @@ def run(argv: Optional[Sequence[str]] = None
 
 def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
            device: torch.device, mesh, hier: Optional[GroupConfig],
-           budget: Optional[FBudget]) -> Tuple[Any, List[Dict[str, Any]]]:
-    """:func:`run` once the flags are checked (``hier`` and ``budget`` as
+           budget: Optional[FBudget]
+           ) -> Tuple[Any, List[Dict[str, Any]], Any]:
+    """:func:`run_state` once the flags are checked (``hier`` and ``budget`` as
     :func:`hier_config` gives them) and the mesh (or None) is up."""
     lead = mesh is None or dist.get_rank() == 0
 
@@ -259,11 +291,14 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
                              attack=args.attack, attack_f=args.f,
                              codec=args.codec)
     history: List[Dict[str, Any]] = []
+    tracer = OBS.SpanTracer() if args.obs else None
     for i, wb in zip(range(args.steps), worker_batches(args, cfg, device)):
         t0 = time.perf_counter()
-        params, state, metrics = step_fn(params, state, wb, args.seed + i)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        with tracer.span("step", round=i) if tracer else nullcontext():
+            params, state, metrics = step_fn(params, state, wb,
+                                             args.seed + i)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         seconds = time.perf_counter() - t0
         tel = metrics["telemetry"]
         rec = {"loss": float(metrics["loss"]),
@@ -292,9 +327,33 @@ def _train(args: argparse.Namespace, cfg, rcfg: RobustConfig,
     if args.ckpt_dir and lead:
         path = save(args.ckpt_dir, args.steps, {"params": params})
         say(f"[train] checkpoint -> {path}")
+    if args.obs and lead and state.mstate is not None:
+        write_obs(args, cfg, state.mstate, tracer)
     say(f"[train] done: final loss {history[-1]['loss']:.4f}"
         if history else "[train] done: no steps")
-    return params, history
+    return params, history, state
+
+
+def write_obs(args: argparse.Namespace, cfg: ArchConfig, mstate,
+              tracer: OBS.SpanTracer) -> None:
+    """Drain ``mstate`` into the ``--obs-json`` snapshot and, with the
+    tracer's host spans, the ``--obs-trace`` Chrome trace; prints the
+    ``[train] obs:`` line."""
+    recs = OBS.drain(mstate.get("t"))
+    snap = OBS.snapshot(
+        metrics=mstate["m"], trace_records=recs,
+        meta={"source": "launch.train", "arch": cfg.name,
+              "trainer": args.trainer, "steps": args.steps,
+              "workers": args.workers, "f": args.f, "gar": args.gar,
+              "attack": args.attack})
+    OBS.write_snapshot(args.obs_json, snap)
+    n_ev = OBS.export_chrome_trace(
+        args.obs_trace, device_records=recs, host_spans=tracer.spans,
+        meta={"source": "launch.train", "arch": cfg.name})
+    print(f"[train] obs: {len(recs)} span records, "
+          f"counters {snap['metrics']['counters']} "
+          f"-> {args.obs_json}, {n_ev} trace events -> "
+          f"{args.obs_trace}", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -18,13 +18,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch.configs.base import ArchConfig, RobustConfig
 from repro_torch.core import api
 from repro_torch.core import attacks as ATK
 from repro_torch.core import theory
 from repro_torch.dist.trainer import (TrainerState, _honest_mean_dev,
                                       as_trainer_state, inject_byzantine,
-                                      per_worker_grads)
+                                      per_worker_grads, record_step)
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.serve import buffer as BUF
 from repro_torch.tree import tree_leaves, tree_map
@@ -50,6 +51,12 @@ class AsyncAggService:
         if self.tau < 0:
             raise ValueError(f"staleness bound tau must be >= 0, "
                              f"got {self.tau}")
+
+    @property
+    def obs(self) -> Optional[OBS.ObsConfig]:
+        """The backend's observability config: one switchboard for every
+        consumer of the pipeline."""
+        return self.backend.obs
 
     def budget(self, n: int) -> theory.StalenessBudget:
         return theory.staleness_budget(n, self.backend.f, self.tau,
@@ -88,12 +95,35 @@ def with_buffer(tstate: TrainerState, service: AsyncAggService,
     return dataclasses.replace(tstate, bstate=service.init_state(stacked))
 
 
+def _record_round(mstate, obs: OBS.ObsConfig, rnd, info, metrics):
+    """An async round's records: the serve counters, the ``f_defended``
+    gauge, the ``staleness_age`` histogram and the stats / plan /
+    select_plan spans, then the synchronous step's
+    (``dist.trainer.record_step``: ``rounds``, the loss and norm records,
+    telemetry, the apply span)."""
+    m = mstate["m"]
+    m = OBS.inc(m, "admitted", torch.sum(info["admitted"].float()))
+    m = OBS.inc(m, "overstale_slots", info["n_overstale"])
+    m = OBS.inc(m, "degraded", info["plan_reused"])
+    m = OBS.set_gauge(m, "f_defended", info["f_defended"])
+    m = OBS.observe(m, "staleness_age", info["age"])
+    t = mstate["t"]
+    if obs.trace:
+        # the round's pipeline in program order; select_plan marks the
+        # degradation branch
+        t = OBS.record(t, OBS.PH_STATS, rnd)
+        t = OBS.record(t, OBS.PH_PLAN, rnd, info["f_defended"])
+        t = OBS.record(t, OBS.PH_SELECT_PLAN, rnd, info["plan_reused"])
+    return record_step({"m": m, "t": t}, obs, rnd, metrics)
+
+
 def make_async_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                           opt: Optimizer, lr_fn, *, tau: int,
                           window: int = 0, chunk_q: int = 1024,
                           attack: str = "none",
                           attack_f: Optional[int] = None,
-                          telemetry: bool = False):
+                          telemetry: bool = False,
+                          obs: Optional[OBS.ObsConfig] = None):
     """Build the bounded-staleness async trainer step.
 
     Signature ``(params, state, batch, seed, fresh) -> (params, state,
@@ -115,10 +145,21 @@ def make_async_train_step(cfg: ArchConfig, rcfg: RobustConfig,
     ``honest_dev`` against the buffered rows, ``admitted``, ``overstale``,
     ``staleness_age``, ``n_overstale``, ``f_defended`` and
     ``plan_reused`` (fp32 tensors).
+
+    ``obs`` (an enabled ``obs.ObsConfig``) records the serve registry
+    (``obs.serve_spec``) into ``state.mstate``: the ``admitted`` counter
+    (the round's fresh slots), ``overstale_slots``, ``degraded`` (plan
+    reused), the ``f_defended`` gauge and the ``staleness_age`` histogram
+    (one entry a slot), on top of the stacked trainer's records; with
+    ``obs.trace`` four spans a round: stats, plan (payload ``f_defended``),
+    select_plan (``plan_reused``) and apply (the aggregate's norm).
+    Disabled or ``None`` is the uninstrumented step.
     """
     rcfg.validate()
-    backend = api.AggregatorBackend.for_config(rcfg, needs_dists=telemetry)
+    backend = api.AggregatorBackend.for_config(rcfg, needs_dists=telemetry,
+                                               obs=obs)
     service = AsyncAggService(backend=backend, tau=tau)
+    obs_live = OBS.obs_on(obs)
     theory.staleness_budget(rcfg.n_workers, rcfg.f, tau, rule=rcfg.gar)
     f_eff = rcfg.f if attack_f is None else attack_f
     if not 0 <= f_eff <= rcfg.f:
@@ -133,6 +174,11 @@ def make_async_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                              "seed it with serve.service.with_buffer()")
         losses, grads = per_worker_grads(params, cfg, batch, window=window,
                                          chunk_q=chunk_q)
+        mstate = state.mstate
+        if obs_live and mstate is None:
+            mstate = OBS.init_serve_obs(obs, rcfg.n_workers, tau,
+                                        telemetry=telemetry,
+                                        device=losses.device)
         grads = inject_byzantine(grads, f_eff, attack_fn, seed)
         with torch.no_grad():
             agg, bstate, info = service.round(state.bstate, grads, fresh)
@@ -160,7 +206,11 @@ def make_async_train_step(cfg: ArchConfig, rcfg: RobustConfig,
                                  ("plan_reused", "plan_reused")):
                     diag[key] = info[src].float()
                 metrics["telemetry"] = diag
-        new_state = dataclasses.replace(state, opt=new_opt, bstate=bstate)
+            if obs_live:
+                mstate = _record_round(mstate, obs, state.opt.step, info,
+                                       metrics)
+        new_state = dataclasses.replace(state, opt=new_opt, bstate=bstate,
+                                        mstate=mstate)
         return tree_map(lambda p: p.detach(), new_params), new_state, metrics
 
     return step

@@ -18,9 +18,10 @@ randomness are keyed by the *global* step index (``fold_seed(seed,
 step)``), so traces are reproducible and a resume from a phase-boundary
 checkpoint replays the remaining phases exactly.
 
-The JAX engine's ``obs=`` (the metrics registry and span ring in
-``TrainerState.mstate``) waits for the port of ``repro.obs``; its legacy
-checkpoint key aliases are not needed, the port never wrote that layout.
+With ``obs=`` the registry and span ring ride in ``TrainerState.mstate``
+across every phase, in the boundary checkpoints, and drain once at the
+end into ``CampaignResult.obs``.  The JAX engine's legacy checkpoint key
+aliases are not needed: the port never wrote that layout.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import models as MD
+from repro_torch import obs as OBS
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.configs.base import RobustConfig
 from repro_torch.core import attacks as ATK
@@ -63,7 +65,10 @@ class CampaignResult:
     run resumed from a checkpoint (the trace covers executed steps only).
     ``wire`` is the campaign's ``comm.WireStats`` accounting as a plain dict
     (None without a codec) — ``summarize`` repeats it per phase so the
-    ``sim.campaign.v1`` report carries it.
+    ``sim.campaign.v1`` report carries it.  ``obs`` is the drained
+    ``obs.v1`` snapshot when the campaign ran with an enabled
+    ``obs.ObsConfig`` (None otherwise: the report then has no ``obs``
+    key).
     """
 
     scenario: Scenario
@@ -72,6 +77,7 @@ class CampaignResult:
     start_step: int = 0
     wall_s: float = 0.0
     wire: Optional[Dict[str, Any]] = None
+    obs: Optional[Dict[str, Any]] = None
 
 
 def _init_params(scenario: Scenario, device: torch.device) -> Tree:
@@ -169,8 +175,8 @@ def _restored_state(loaded: TrainerState, like: TrainerState
 
 def run_campaign(scenario: Scenario, *, ckpt_dir: Optional[str] = None,
                  resume: bool = False, verbose: bool = False,
-                 device: Optional[Union[str, torch.device]] = None
-                 ) -> CampaignResult:
+                 device: Optional[Union[str, torch.device]] = None,
+                 obs: Optional[OBS.ObsConfig] = None) -> CampaignResult:
     """Run a scenario end to end on ``device`` (``cuda`` unless asked
     otherwise; a missing card raises); returns the trace + summary.
 
@@ -180,6 +186,13 @@ def run_campaign(scenario: Scenario, *, ckpt_dir: Optional[str] = None,
     package's file format).  With ``resume`` the engine restores the
     latest phase-boundary checkpoint and replays only the remaining
     phases; the returned trace then starts at ``start_step``.
+
+    ``obs`` (an enabled ``obs.ObsConfig``) seeds the registry and span ring
+    into ``TrainerState.mstate`` before the phase loop (``serve_spec`` on
+    the async path, ``train_spec(telemetry=True)`` otherwise), threads it
+    through every step of every phase and through the boundary
+    checkpoints (a resume restores it), and drains it into
+    ``CampaignResult.obs`` as an ``obs.v1`` snapshot.
     """
     t0 = time.time()
     dev = resolve_device(device)
@@ -219,6 +232,11 @@ def run_campaign(scenario: Scenario, *, ckpt_dir: Optional[str] = None,
             backend=api.AggregatorBackend.for_config(rcfg, needs_dists=True),
             tau=scenario.async_tau)
         tstate = SRV.with_buffer(tstate, svc, params, n)
+    if OBS.obs_on(obs):
+        ms = OBS.init_serve_obs(obs, n, scenario.async_tau, telemetry=True,
+                                device=dev) if is_async else \
+            OBS.init_train_obs(obs, n, telemetry=True, device=dev)
+        tstate = dataclasses.replace(tstate, mstate=ms)
     susp = TEL.init_suspicion(n, device=dev)
     stale_ema = TEL.init_suspicion(n, device=dev)
     gsusp = None
@@ -274,17 +292,17 @@ def run_campaign(scenario: Scenario, *, ckpt_dir: Optional[str] = None,
             return make_async_train_step(
                 cfg, rcfg, opt, lr_fn, tau=scenario.async_tau,
                 chunk_q=chunk_q, attack=attack, attack_f=f_eff,
-                telemetry=True)
+                telemetry=True, obs=obs)
         if scenario.trainer == "stacked":
             return make_train_step(
                 cfg, rcfg, opt, lr_fn, chunk_q=chunk_q, attack=attack,
                 attack_f=f_eff, transforms=transforms,
-                codec=scenario.codec, telemetry=True, hier=hier)
+                codec=scenario.codec, telemetry=True, hier=hier, obs=obs)
         scope = "global" if scenario.trainer.endswith("global") else "block"
         return make_streaming_train_step(
             cfg, rcfg, opt, lr_fn, scope=scope, chunk_q=chunk_q,
             attack=attack, attack_f=f_eff, codec=scenario.codec,
-            telemetry=True, hier=hier)
+            telemetry=True, hier=hier, obs=obs)
 
     ema = scenario.suspicion_ema
     for phase_idx, ((start, stop), phase) in enumerate(
@@ -342,6 +360,14 @@ def run_campaign(scenario: Scenario, *, ckpt_dir: Optional[str] = None,
     trace = TEL.concat_traces(phase_traces)
     summary = TEL.summarize(trace, scenario, start_step, wire=wire) \
         if trace else {}
+    obs_snap = None
+    if OBS.obs_on(obs) and tstate.mstate is not None:
+        obs_snap = OBS.snapshot(
+            metrics=tstate.mstate["m"],
+            trace_records=OBS.drain(tstate.mstate["t"]),
+            meta={"source": "sim.engine", "scenario": scenario.name,
+                  "trainer": scenario.trainer,
+                  "async_tau": scenario.async_tau})
     return CampaignResult(scenario=scenario, trace=trace, summary=summary,
                           start_step=start_step, wall_s=time.time() - t0,
-                          wire=wire)
+                          wire=wire, obs=obs_snap)

@@ -13,8 +13,7 @@ JSON schema (``sim.campaign.v1``)::
 Vector trace fields (``selection``, ``suspicion``, ``score_spectrum``,
 ``loss_per_worker``) are summarised per phase in ``summary`` and kept out of
 ``per_step`` to bound report size; pass ``full_trace=True`` to embed them.
-The JAX report's ``obs`` snapshot has no counterpart yet (the port's
-campaigns run without the observability registry).
+A campaign run with ``obs=`` adds its ``obs.v1`` snapshot under ``"obs"``.
 """
 from __future__ import annotations
 
@@ -35,7 +34,7 @@ def result_to_json(result, *, full_trace: bool = False) -> Dict[str, Any]:
         arr = np.asarray(v)
         if arr.ndim == 1 or full_trace:
             per_step[k] = np.round(arr.astype(np.float64), 6).tolist()
-    return {
+    out = {
         "schema": SCHEMA,
         "scenario": result.scenario.to_json(),
         "start_step": int(result.start_step),
@@ -43,6 +42,11 @@ def result_to_json(result, *, full_trace: bool = False) -> Dict[str, Any]:
         "summary": result.summary,
         "per_step": per_step,
     }
+    # the snapshot rides along only when the campaign ran with obs: a
+    # report without it is the report written before obs was ported
+    if getattr(result, "obs", None) is not None:
+        out["obs"] = result.obs
+    return out
 
 
 def write_json(path: str, result, *, full_trace: bool = False) -> str:

@@ -183,3 +183,17 @@ def test_the_sim_package_is_covered():
                  "data/synthetic.py", "data/__init__.py"):
         assert f"src/repro_torch/{want}" in names
     assert "examples/byzantine_training_torch.py" in names
+
+
+def test_the_obs_package_is_covered():
+    """The observability subsystem (``repro_torch.obs``: registry, span
+    ring, profile hooks, drain), its report driver and the modules that
+    gained ``obs=`` or the profile hooks are among the checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+                 "obs/profile.py", "obs/export.py", "launch/obs_report.py",
+                 "launch/train.py", "kernels/ops.py", "kernels/build.py",
+                 "checkpoint/store.py", "dist/trainer.py",
+                 "dist/streaming.py", "hier/aggregate.py",
+                 "serve/service.py", "sim/engine.py", "sim/report.py"):
+        assert f"src/repro_torch/{want}" in names
