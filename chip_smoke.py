@@ -261,7 +261,8 @@ launch counted under its variant (``theta>32``, ``theta>128``).  Then
 both timed at each of those theta on one synthetic stack of WIDE_SWEEP_D
 columns (K2 at n = theta + 6, K3 on (theta, WIDE_SWEEP_D) inputs, beta =
 theta - 4), each held bit for bit to its plain version, beside
-``k2_bound_s`` / ``k3_bound_s`` (the ``kernels`` line's ``wide_sweep``).
+``analysis/bounds.py``'s ``k2_bound_s`` / ``k3_bound_s`` (the ``kernels``
+line's ``wide_sweep``).
 
 The encoder-decoder phases (after the decoder families, before phase 11's
 timing), whisper-tiny at its published widths and full depth (4 encoder
@@ -427,6 +428,21 @@ The observability phases (``repro_torch.obs``, after S1), kernels on:
   its points, each with its launch configuration and ptxas's registers,
   shared memory and spills, printed.
 
+The analysis phase (``repro_torch.analysis``, after O5), A1:
+``launch/analyze.py --device cuda --strict`` in this process exits 0 (the
+port's tree lints clean; C201 and C202 proven on every rank of its 2x2
+gloo world on the CPU; C204 on the plain route and on a training step
+with the kernels; C205; every estimate within the card's limits); then
+``analysis/smem.py``'s estimate of every kernel function the phases
+launch (the training step, wire A, the mesh tiles, S2's logit stack, the
+theta > 32 sweep) has ptxas's static shared memory, and each network
+variant's dynamic shared memory, threads, blocks an SM and grid are what
+its library reports (CUDA's occupancy query; the grid its blocks an SM
+times the card's SMs, or fewer where the columns need fewer) at every
+theta of
+``select_cases.WIDE_THETAS`` up to 128; the warps an SM of K5 (int8, n =
+11) and of K7's (4, 12) tile are printed beside ROADMAP's claims.
+
 Launch counts are read per phase: every count is set to 0 just before a
 training phase, a substrate's apply, a mesh statistics pass, a mesh tile
 route or a serving phase and read just after it (``launches_by_phase``
@@ -462,8 +478,6 @@ K2_SWEEP = tuple((t, b) for t in range(1, N)
 CHECK_WIDTHS = (1, 4095, 100_003, 1_000_000)
 EMBED_WIDTH = 151936 * 1536           # qwen2-1.5b's tied embedding leaf
 K1_TOL, K2_TOL = 1e-5, 1e-6
-HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12               # H100 SXM data sheet, non-tensor fp32
 K5_NS = (1, 3, 11, 13, 37, 150)
 # odd or 4095: K5 / K7's per-element loads; multiples of 4: the packed words
 K5_WIDTHS = (1, 4095, 100_003, 4096, 100_004, 1 << 20)
@@ -1781,6 +1795,7 @@ def mesh_tiles(torch):
     replicated K2 on the same leaves, with their bounds.  Returns
     ({"<W>x<M> k2|k3": counts}, {mesh: ms, "replicated": ms}, {mesh:
     bound}, bound_by)."""
+    from repro_torch.analysis import bounds
     from repro_torch.core import api
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_select import fused_select_cuda
@@ -1835,7 +1850,7 @@ def mesh_tiles(torch):
             m = tile.shape[1]
             ms[mesh] += time_ms(torch, lambda: fused_select_cuda(
                 tile, we_p, wa_p, beta), 5 if m > 10_000_000 else 20)
-            b = k2_bound_s(n_pad, m, theta, beta)
+            b = bounds.k2_bound_s(n_pad, m, theta, beta)
             b_bytes[mesh] += b["bytes"]
             b_ops[mesh] += b["operations"]
             del tile
@@ -1857,7 +1872,7 @@ def mesh_tiles(torch):
         m = x.shape[1]
         ms["replicated"] += time_ms(torch, lambda: fused_select_cuda(
             x, we, wa, beta), 5 if m > 10_000_000 else 20)
-        b = k2_bound_s(N, m, theta, beta)
+        b = bounds.k2_bound_s(N, m, theta, beta)
         b_bytes["replicated"] += b["bytes"]
         b_ops["replicated"] += b["operations"]
     for key in ms:
@@ -2398,7 +2413,8 @@ def serve_and_time(torch, power, label, argv, cfg, *, profile=False):
         tok = torch.argmax(logits, dim=-1).int()
         profiled(torch, f"{label}: one decode step",
                  lambda: step(params, cache, tok, n_prefix + SERVE_PROMPT))
-    bound_ms = 1e3 * 4 * n_params / HBM_BYTES_PER_S
+    from repro_torch.analysis import bounds
+    bound_ms = 1e3 * bounds.bytes_bound_s(4 * n_params)
     with torch.no_grad():
         full = MD.forward_fn(params, cfg, batch, chunk_q=SERVE_PROMPT,
                              logits_tail=1)[:, -1]
@@ -2650,8 +2666,9 @@ def robust_serving(torch, power):
         x, plan.w_ext, plan.w_agr, plan.beta), 50)
     cast_ms = time_ms(torch, lambda: first.reshape(N, -1).float()
                       .contiguous(), 50)
-    k1_bound = 1e3 * 4 * (N * m + N * N + N) / HBM_BYTES_PER_S
-    k2_bound = 1e3 * 4 * (N * m + m + 2 * theta * N) / HBM_BYTES_PER_S
+    from repro_torch.analysis import bounds
+    k1_bound = 1e3 * bounds.k1_bound_s(N, m)["bytes"]
+    k2_bound = 1e3 * bounds.k2_bound_s(N, m, theta, plan.beta)["bytes"]
     out = {"token_ms": 1e3 * statistics.mean(step_s),
            "token_ms_all": [round(1e3 * s, 4) for s in step_s],
            "k1_ms": k1_ms, "k2_ms": k2_ms, "cast_ms": cast_ms,
@@ -2922,6 +2939,7 @@ def moe_leaves(torch):
     timed (median of 3, CUDA events) beside its plain version, the library
     call (``torch.mm`` for K1; none for K2) and its bound.  Returns
     {leaf: {k1_ms, k1_plain_ms, k1_lib_ms, k1_bound_ms, k2_ms, ...}}."""
+    from repro_torch.analysis import bounds
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_select import fused_select_cuda
     from repro_torch.kernels.pairwise_sqdist import pairwise_stats_cuda
@@ -2950,9 +2968,8 @@ def moe_leaves(torch):
                 x, plan.w_ext, plan.w_agr, plan.beta), 3),
             "k2_plain_ms": time_ms(torch, lambda: ref.fused_select_ref(
                 x, plan.w_ext, plan.w_agr, plan.beta), 1)}
-        k1_b = {"bytes": 4 * (N * m + N * N + N) / HBM_BYTES_PER_S,
-                "operations": N * (N + 1) * m / FP32_FLOP_PER_S}
-        k2_b = k2_bound_s(N, m, theta, plan.beta)
+        k1_b = bounds.k1_bound_s(N, m)
+        k2_b = bounds.k2_bound_s(N, m, theta, plan.beta)
         for k, b in (("k1", k1_b), ("k2", k2_b)):
             r[f"{k}_bound_by"] = max(b, key=b.get)
             r[f"{k}_bound_ms"] = 1e3 * max(b.values())
@@ -2981,15 +2998,18 @@ def wide_theta_sweep(torch, power):
     (each theta of 32..129 through ``wide_shape``).  Then each theta timed
     (:func:`wide_sweep_timing`).  Returns (the number of cases, the
     timings)."""
+    from repro_torch.analysis.bounds import kernel_slots
     from repro_torch.kernels import ops, ref, select_cases
     from repro_torch.kernels.coord_select import coord_select_cuda
     from repro_torch.kernels.fused_select import (MAX_WIDE_THETA,
+                                                  NETWORK_SLOTS,
                                                   fused_select_cuda,
                                                   variant_name, wide_shape)
     for lib in ("fused_select", "coord_select"):
         thetas = range(32, MAX_WIDE_THETA + 2)
         got = [(wide_shape(t, lib) or {}).get("slots") for t in thetas]
-        want = [kernel_slots(t) if 32 < t <= MAX_WIDE_THETA else None
+        want = [kernel_slots(t, NETWORK_SLOTS) if 32 < t <= MAX_WIDE_THETA
+                else None
                 for t in thetas]
         check(got == want, f"{lib}: the library's network buckets {got} "
               f"are not NETWORK_SLOTS' {want}")
@@ -3030,28 +3050,37 @@ def wide_theta_sweep(torch, power):
     return cases, wide_sweep_timing(torch, power)
 
 
-def wide_sweep_case(torch, kernel, theta):
-    """(wrapper, arguments, bound, slots bound) of K2 (``kernel`` "k2") or K3 ("k3") at
-    ``theta`` on the sweep's synthetic stack of WIDE_SWEEP_D columns: K2 on
-    (theta + WIDE_N_EXTRA, WIDE_SWEEP_D) rows (:func:`rows_stack`) with
-    ``select_cases.synthetic_plan``, K3 on (theta, WIDE_SWEEP_D) g_ext /
-    g_agr of the same noise; beta = theta - 4 (a multi-Bulyan plan's at f
-    = 2); the bound as ``k2_bound_s`` / ``k3_bound_s`` count it, on the
-    yardstick's slots and on the kernel's own (:func:`kernel_slots`).
-    ``tools/time_k1.py --thetas`` times the same cases."""
+def wide_sweep_case(torch, kernel, theta, bounds=None):
+    """(wrapper, arguments, bound, slots bound) of K2 (``kernel`` "k2") or
+    K3 ("k3") at ``theta`` on the sweep's synthetic stack of WIDE_SWEEP_D
+    columns: K2 on (theta + WIDE_N_EXTRA, WIDE_SWEEP_D) rows
+    (:func:`rows_stack`) with ``select_cases.synthetic_plan``, K3 on
+    (theta, WIDE_SWEEP_D) g_ext / g_agr of the same noise; beta = theta -
+    4 (a multi-Bulyan plan's at f = 2); the bound as ``bounds``'
+    ``k2_bound_s`` / ``k3_bound_s`` count it (``analysis/bounds.py`` by
+    default), on the yardstick's slots and on the kernel's own
+    (``bounds.kernel_slots``).  ``tools/time_k1.py --thetas`` times the
+    same cases, with its own tree's ``bounds`` on a checkout's kernels."""
+    if bounds is None:
+        from repro_torch.analysis import bounds
+    from repro_torch.kernels import fused_select
     from repro_torch.kernels.coord_select import coord_select_cuda
     from repro_torch.kernels.fused_select import fused_select_cuda
-    d, beta, slots = WIDE_SWEEP_D, theta - 4, kernel_slots(theta)
+    # a checkout without the network variant counts theta above 32
+    slots = bounds.kernel_slots(
+        theta, getattr(fused_select, "NETWORK_SLOTS", ()))
+    d, beta = WIDE_SWEEP_D, theta - 4
     if kernel == "k2":
         n = theta + WIDE_N_EXTRA
         we, wa = synthetic_plan(torch, theta, n, seed=theta)
         return (fused_select_cuda,
                 (rows_stack(torch, d, seed=theta, n=n), we, wa, beta),
-                k2_bound_s(n, d, theta, beta),
-                k2_bound_s(n, d, theta, beta, slots))
+                bounds.k2_bound_s(n, d, theta, beta),
+                bounds.k2_bound_s(n, d, theta, beta, slots))
     g = rows_stack(torch, d, seed=theta, n=2 * theta)
     return coord_select_cuda, (g[:theta], g[theta:], beta), \
-        k3_bound_s(d, theta, beta), k3_bound_s(d, theta, beta, slots)
+        bounds.k3_bound_s(d, theta, beta), \
+        bounds.k3_bound_s(d, theta, beta, slots)
 
 
 def wide_sweep_timing(torch, power):
@@ -3094,7 +3123,7 @@ def wide_entry(wide, k, launches):
     (``k``: "k2" or "k3"), timed over whisper's leaves at n = WIDE_N, and
     its largest difference from its plain version there; the launches
     from the phase that ran it.  ``slots_bound_ms`` is the bound with the
-    selection charged on the kernel's own slots (:func:`kernel_slots`)."""
+    selection charged on the kernel's own slots (``bounds.kernel_slots``)."""
     return {"theta": wide["theta"], "n": WIDE_N, "launches": launches,
             "max_abs_err": wide[f"{k}_err"], "ms": wide[k],
             "plain_ms": wide[f"{k}_plain"],
@@ -3125,11 +3154,13 @@ def wide_two_step(torch, power):
     their plain versions and bounds.  Returns (the fused apply's counts,
     the fused=False counts, the timing numbers)."""
     from repro_torch import models as MD
+    from repro_torch.analysis import bounds
     from repro_torch.core import api
     from repro_torch.dist import inject_byzantine, per_worker_grads
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.coord_select import coord_select_cuda
-    from repro_torch.kernels.fused_select import fused_select_cuda
+    from repro_torch.kernels.fused_select import (NETWORK_SLOTS,
+                                                  fused_select_cuda)
     from repro_torch.tree import tree_leaves
     label = f"whisper two-step at n = {WIDE_N}"
     cfg, batch = whisper_batch(torch, WHISPER_WIDE_ARGS)
@@ -3206,7 +3237,7 @@ def wide_two_step(torch, power):
                             "k3_err")}
     bound = {k: {"bytes": 0.0, "operations": 0.0} for k in ("k2", "k3")}
     own = {k: {"bytes": 0.0, "operations": 0.0} for k in ("k2", "k3")}
-    slots = kernel_slots(theta)
+    slots = bounds.kernel_slots(theta, NETWORK_SLOTS)
     we, wa = plan.w_ext, plan.w_agr
     for i, x in enumerate(leaves):
         m = x.shape[1]
@@ -3233,10 +3264,10 @@ def wide_two_step(torch, power):
         tot["k3_plain"] += time_ms(
             torch, lambda: ref.coord_select_ref(ge, ga, beta), 1)
         del ge, ga
-        for k, b, o in (("k2", k2_bound_s(WIDE_N, m, theta, beta),
-                         k2_bound_s(WIDE_N, m, theta, beta, slots)),
-                        ("k3", k3_bound_s(m, theta, beta),
-                         k3_bound_s(m, theta, beta, slots))):
+        for k, b, o in (("k2", bounds.k2_bound_s(WIDE_N, m, theta, beta),
+                         bounds.k2_bound_s(WIDE_N, m, theta, beta, slots)),
+                        ("k3", bounds.k3_bound_s(m, theta, beta),
+                         bounds.k3_bound_s(m, theta, beta, slots))):
             for key in b:
                 bound[k][key] += b[key]
                 own[k][key] += o[key]
@@ -3442,17 +3473,19 @@ def stack_of(torch, argv, n, f):
 def level_bound_s(n, m, plan, own_slots=False):
     """The least seconds of one level's kernels on an (n, m) operand: K1
     (the stack read once, the (n, n) result written once; the gram's
-    upper triangle in fp32) and K2 (:func:`k2_bound_s`, its selection on
-    the kernel's own slots with ``own_slots``), each the larger of its two
-    times; for a weighted plan (the average) the stack read once and the
-    mean written once."""
+    upper triangle in fp32) and K2 (``analysis/bounds.py``'s ``k2_bound_s``,
+    its selection on the kernel's own slots with ``own_slots``), each the
+    larger of its two times; for a weighted plan (the average) the stack
+    read once and the mean written once."""
+    from repro_torch.analysis import bounds
+    from repro_torch.kernels.fused_select import NETWORK_SLOTS
     if plan.kind != "bulyan":
-        return 4 * (n * m + m) / HBM_BYTES_PER_S
-    k1 = max(4 * (n * m + n * n + n) / HBM_BYTES_PER_S,
-             n * (n + 1) * m / FP32_FLOP_PER_S)
+        return bounds.bytes_bound_s(4 * (n * m + m))
+    k1 = max(bounds.k1_bound_s(n, m).values())
     theta = plan.w_ext.shape[0]
-    return k1 + max(k2_bound_s(n, m, theta, plan.beta, kernel_slots(
-        theta) if own_slots else None).values())
+    slots = bounds.kernel_slots(theta, NETWORK_SLOTS) if own_slots \
+        else None
+    return k1 + max(bounds.k2_bound_s(n, m, theta, plan.beta, slots).values())
 
 
 def traced(torch, label, fn):
@@ -4030,6 +4063,7 @@ def microbatch_serving(torch, power, robust_out):
     and K1 / K2 on the first token's stack held to their plain versions and
     timed.  Returns (counts, numbers)."""
     from repro_torch import models as MD
+    from repro_torch.analysis import bounds
     from repro_torch.configs import RobustConfig
     from repro_torch.dist.serving import make_robust_serve_step
     from repro_torch.kernels import ops, ref
@@ -4154,9 +4188,8 @@ def microbatch_serving(torch, power, robust_out):
            "token_ms_all": [round(1e3 * s, 4) for s in step_s],
            "ensemble_token_ms": robust_out["token_ms"],
            "k1_ms": k1_ms, "k1_lib_ms": k1_lib_ms, "k2_ms": k2_ms,
-           "k1_bound_ms": 1e3 * 4 * (N * width + N * N + N)
-           / HBM_BYTES_PER_S,
-           "k2_bound_ms": 1e3 * max(k2_bound_s(
+           "k1_bound_ms": 1e3 * bounds.k1_bound_s(N, width)["bytes"],
+           "k2_bound_ms": 1e3 * max(bounds.k2_bound_s(
                N, width, theta, plan.beta).values()),
            "k1_err": max(err_d[0], err_s[0]), "width": width,
            "uniform_bits": uniform_bits, "uniform_max_diff": uniform_diff}
@@ -4926,77 +4959,151 @@ def obs_kernel_report(torch, power, snap_path):
     return counts, recs
 
 
-def network_exchanges(slots):
-    """Compare-exchanges of select_tile.cuh's Batcher odd-even merge sort
-    on `slots` slots (its Network<N>::size())."""
-    c, p = 0, 1
-    while p < slots:
-        k = p
-        while k >= 1:
-            for j in range(k % p, slots - k, 2 * k):
-                c += sum((i + j) // (2 * p) == (i + j + k) // (2 * p)
-                         for i in range(min(k, slots - j - k)))
-            k //= 2
-        p *= 2
-    return c
+def a1_estimates(shapes):
+    """(label, estimate) of every kernel call the phases launch, at their
+    shapes (``analysis/smem.py``): the training step's K1 and K2 (theta =
+    THETA_MAIN) on each leaf, wire A's K5 (int8), the mesh tiles' K6 and
+    K7 (square, view and rectangular grids, int8 and bf16) and K2 on a
+    rank's (n_pad, d/M) tile, S2's K1 and K2 on its (N, MICRO_LANES x
+    151936) logit stack, and the theta > 32 sweep's K2 (n = theta +
+    WIDE_N_EXTRA and 256) and K3 at each theta of
+    ``select_cases.WIDE_THETAS``."""
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import select_cases
+    beta = THETA_MAIN - 2 * F
+    n_loc = -(-N // MESH_W)
+    n_pad = n_loc * MESH_W
+    out = []
+    for i, shape in enumerate(shapes):
+        m = math.prod(shape[1:])
+        out += [(f"train K1 leaf {i}", smem.estimate_pairwise_stats(N, m)),
+                (f"train K2 leaf {i}", smem.estimate_fused_select(
+                    N, m, THETA_MAIN, beta)),
+                (f"wire A K5 leaf {i}", smem.estimate_dequant_stats(
+                    N, m, "int8"))]
+    m = math.prod(shapes[0][1:])
+    for dtype in ("int8", "bfloat16"):
+        out += [(f"mesh K7 square {dtype}", smem.estimate_dequant_stats_rect(
+                    N, N, m, dtype, square=True)),
+                (f"mesh K7 block {dtype}", smem.estimate_dequant_stats_rect(
+                    n_loc, n_pad, m, dtype, n=N))]
+    out += [(f"mesh K6 {kind}", smem.estimate_pairwise_stats_rect(
+                n_loc if kind != "square" else N,
+                n_pad if kind != "square" else N, m, n=N, grid_kind=kind))
+            for kind in ("square", "view", "rect")]
+    out.append(("mesh tile K2", smem.estimate_fused_select(
+        n_pad, -(-m // 2), THETA_MAIN, beta)))
+    width = MICRO_LANES * 151936
+    out += [("S2 K1", smem.estimate_pairwise_stats(N, width)),
+            ("S2 K2", smem.estimate_fused_select(N, width, THETA_MAIN, beta))]
+    for theta in select_cases.WIDE_THETAS:
+        for n in (theta + WIDE_N_EXTRA, 256):
+            out.append((f"sweep K2 theta={theta} n={n}",
+                        smem.estimate_fused_select(n, WIDE_SWEEP_D, theta,
+                                                   theta - 4)))
+        out.append((f"sweep K3 theta={theta}", smem.estimate_coord_select(
+            theta, WIDE_SWEEP_D, theta - 4)))
+    return out
 
 
-def kernel_slots(theta):
-    """The register slots the kernels' selection runs on at ``theta``:
-    theta up to 16, 32 up to 32, the network variant's bucket up to
-    ``fused_select.MAX_WIDE_THETA`` (``NETWORK_SLOTS``: 40, 48, 64, 96 or
-    128, at or below the next power of two), theta above (the counted
-    kernels there rank every pair instead)."""
-    from repro_torch.kernels import fused_select
-    if theta <= 32:
-        return theta if theta <= 16 else 32
-    # a checkout without the network variant counts theta above 32
-    return next((s for s in getattr(fused_select, "NETWORK_SLOTS", ())
-                 if theta <= s), theta)
-
-
-def select_phase_ops(theta, beta, slots=None):
-    """fp32 operations of one coordinate's phase as select_tile.cuh's
-    algorithm runs it for K2 and K3 on ``slots`` register slots: the
-    median's network, two operations an exchange, and the midpoint for an
-    even theta; theta differences and abs values; the threshold (theta -
-    1 mins for beta = 1, the network again otherwise); a compare below and
-    a compare at it a slot, beta adds and the division.  ``slots``
-    defaults to the yardstick that versions of the kernels are compared
-    on: theta up to 16, 32 up to 32, the next power of two above.
-    :func:`kernel_slots` gives the slots the kernels run on: the same up
-    to 32, their bucket's up to 128 (fewer operations, so a tighter
-    bound), theta above, where the counted kernels rank every pair (about
-    8 theta^2 operations, their algorithm's cost, which neither count
-    charges).  Both count this algorithm's operations, not the least any
-    algorithm could need."""
-    if slots is None:
-        slots = theta if theta <= 16 else 32 if theta <= 32 \
-            else 1 << (theta - 1).bit_length()
-    net = 2 * network_exchanges(slots)
-    threshold = theta - 1 if beta == 1 else net
-    return net + (0 if theta & 1 else 2) + 2 * theta + threshold \
-        + 2 * theta + beta + 1
-
-
-def k2_bound_s(n, m, theta, beta, slots=None):
-    """K2's least seconds on an (n, m) stack, by bytes and by operations:
-    the stack read once, the (m,) result written once, the two (theta, n)
-    weights read once; the two contractions (a multiply and an add each a
-    weight) and the coordinate phase (:func:`select_phase_ops` on
-    ``slots``)."""
-    return {"bytes": 4 * (n * m + m + 2 * theta * n) / HBM_BYTES_PER_S,
-            "operations": (4 * theta * n + select_phase_ops(
-                theta, beta, slots)) * m / FP32_FLOP_PER_S}
-
-
-def k3_bound_s(m, theta, beta, slots=None):
-    """K3's least seconds on (theta, m) g_ext and g_agr: both read once,
-    the (m,) result written once; the coordinate phase's operations on
-    ``slots``."""
-    return {"bytes": 4 * (2 * theta * m + m) / HBM_BYTES_PER_S,
-            "operations": select_phase_ops(theta, beta, slots) * m
-            / FP32_FLOP_PER_S}
+def analysis_phase(torch, power, shapes):
+    """A1, ``repro_torch.analysis`` on the card: ``launch/analyze.py
+    --strict`` in this process (exit 0: the port lints clean, C201 / C202
+    proven in its 2x2 gloo world on the CPU, C204 on the plain route and
+    on a training step with the kernels, C205, every estimate within the
+    card's limits and its static shared memory ptxas's); every kernel
+    function the phases launch (:func:`a1_estimates`) with its static
+    shared memory ptxas's (spills reported); each network variant's dynamic
+    shared memory, threads and blocks an SM what its library reports (the
+    kernel's occupancy query, ``fused_select.wide_shape``), and its grid
+    (ptxas's registers counted) those blocks an SM times the card's SMs,
+    at every theta of ``select_cases.WIDE_THETAS`` up to 128; zero nvcc
+    runs and library
+    loads on the training steps after the first.  Returns the numbers."""
+    import tempfile
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import build, select_cases
+    from repro_torch.kernels.fused_select import MAX_WIDE_THETA, wide_shape
+    from repro_torch.launch import analyze
+    label = "A1 analysis"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "analysis.json")
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            rc = analyze.main(["--device", "cuda", "--strict", "--json",
+                               path, "--root", ROOT])
+        with open(path) as fh:
+            report = json.load(fh)
+    check(rc == 0, f"{label}: analyze --strict exit {rc}: "
+          f"{analyze.gate_problems(report)}")
+    c204 = report["results"]["contracts"]["C204-single-build/train_step"]
+    check(c204["status"] == "proven", f"{label}: C204 {c204}")
+    reports = {name: build.ptxas_report(name) for name in build.KERNELS}
+    rows = 0
+    functions, spills = set(), {}
+    for what, est in a1_estimates(shapes):
+        for row in smem.against_ptxas(est, reports[est.kernel]):
+            check(row["ok"], f"{label}: {what}: {row}")
+            functions.add(row["mangled"])
+            if row["spill_bytes"]:
+                spills[row["function"]] = row["spill_bytes"]
+            rows += 1
+        check(not est.problems(), f"{label}: {what}: {est.problems()}")
+    buckets = 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for theta in (t for t in select_cases.WIDE_THETAS
+                  if 32 < t <= MAX_WIDE_THETA):
+        for lib, est in (("fused_select", smem.estimate_fused_select(
+                              theta + WIDE_N_EXTRA, WIDE_SWEEP_D, theta,
+                              theta - 4)),
+                         ("coord_select", smem.estimate_coord_select(
+                             theta, WIDE_SWEEP_D, theta - 4))):
+            (row,) = smem.against_ptxas(est, reports[lib])
+            (launch,) = est.launches
+            card = wide_shape(theta, lib)
+            # the launcher's grid: the blocks wanted (the estimate's
+            # shared-memory bound caps them no lower) at most per_sm x SMs
+            grid = min(launch.grid[0], card["blocks_per_sm"] * sms)
+            check(card["smem_bytes"] == launch.dynamic_smem
+                  and card["threads"] == launch.threads
+                  and card["blocks_per_sm"] == row["blocks_per_sm"]
+                  and row["grid"] == [grid],
+                  f"{label}: {lib} theta={theta}: the library's launch "
+                  f"{card} on {sms} SMs (grid {grid}), predicted "
+                  f"{launch.dynamic_smem} B, {launch.threads} threads, "
+                  f"{row['blocks_per_sm']} blocks an SM "
+                  f"({row['limited_by']}), grid {row['grid']}")
+            buckets += 1
+    k5 = smem.against_ptxas(smem.estimate_dequant_stats(N, 4096, "int8"),
+                            reports["dequant_stats"])[0]
+    k7 = smem.against_ptxas(smem.estimate_dequant_stats_rect(
+        -(-N // MESH_W), -(-N // MESH_W) * MESH_W, 4096, "int8", n=N),
+        reports["dequant_stats_rect"])[0]
+    secs = time.perf_counter() - t0
+    out = {"analyze_rc": rc, "c204_train_step": c204["detail"],
+           "functions": len(functions), "checks": rows,
+           "network_checks": buckets, "spill_bytes": spills,
+           "k5_int8_n11": {k: k5[k] for k in ("registers", "blocks_per_sm",
+                                              "warps_per_sm", "limited_by")},
+           "k7_rect_4x12_int8": {k: k7[k] for k in (
+               "registers", "blocks_per_sm", "warps_per_sm", "limited_by")},
+           "seconds": secs}
+    n_est = sum(len(v) for v in
+                report["results"]["analysis"]["kernels"].values())
+    log(f"{label}: analyze --strict exit 0 (lint, C201 / C202 in a 2x2 "
+        f"gloo world on the CPU, C204, C205, {n_est} estimates beside "
+        f"ptxas); {rows} launched functions' static "
+        f"shared memory ptxas's ({len(functions)} distinct; spills "
+        f"{spills or 'none'}); "
+        f"{buckets} network-variant launches' dynamic shared memory, "
+        f"blocks an SM and grid the library's; C204 on the training step: "
+        f"{c204['detail']}; K5 int8 n = 11 {k5['registers']} registers, "
+        f"{k5['warps_per_sm']} warps an SM (ROADMAP queue 2 lever 4 says "
+        f"16); K7's (4, 12) int8 tile {k7['registers']} registers, "
+        f"{k7['blocks_per_sm']} block(s), {k7['warps_per_sm']} warps an SM "
+        f"(lever 3 says one block); {secs:.1f}s; card {power}")
+    return out
 
 
 def time_ms(torch, fn, reps):
@@ -5018,6 +5125,7 @@ def timing(torch, shapes, worst_k5):
     """Per-step sums over the main path's leaves of each function's median
     time, with the bound from this run's shapes.  K5 is also checked on
     every payload it is timed on, as in :func:`compare_k5`."""
+    from repro_torch.analysis import bounds
     from repro_torch.core import api
     from repro_torch.kernels import ref
     from repro_torch.kernels.coord_select import coord_select_cuda
@@ -5048,12 +5156,11 @@ def timing(torch, shapes, worst_k5):
         tot["k2_plain"] += time_ms(torch, lambda: ref.fused_select_ref(
             x, plan.w_ext, plan.w_agr, plan.beta), min(reps, 3))
         # each input read once, each output written once; fp32 operations
-        # outside the tensor cores (the gram's upper triangle for K1; K2's
-        # as k2_bound_s counts them)
-        bound["k1"]["bytes"] += 4 * (N * m + N * N + N) / HBM_BYTES_PER_S
-        bound["k1"]["operations"] += N * (N + 1) * m / FP32_FLOP_PER_S
-        for key, v in k2_bound_s(N, m, theta, beta).items():
-            bound["k2"][key] += v
+        # outside the tensor cores, as analysis/bounds.py counts them
+        for k, b in (("k1", bounds.k1_bound_s(N, m)),
+                     ("k2", bounds.k2_bound_s(N, m, theta, beta))):
+            for key, v in b.items():
+                bound[k][key] += v
         # the two-step apply at theta = 5: the two products, K3 on what
         # they formed (checked against its plain version), and the whole
         # substrate as _bulyan_leaf runs it
@@ -5070,15 +5177,11 @@ def timing(torch, shapes, worst_k5):
             torch, lambda: (torch.matmul(we, x), torch.matmul(wa, x)), reps)
         tot["two_step"] += time_ms(torch, lambda: api._bulyan_leaf(
             we, wa, beta, x, use_kernels=True, fused=False), reps)
-        # K3 as k3_bound_s counts it.  The products: the stack and a
-        # weight matrix read, theta rows written, 2 theta n flops a
-        # coordinate, each of the two.
-        for key, v in k3_bound_s(m, theta, beta).items():
-            bound["k3"][key] += v
-        bound["matmuls"]["bytes"] += 2 * 4 * (N * m + theta * N
-                                              + theta * m) / HBM_BYTES_PER_S
-        bound["matmuls"]["operations"] += 2 * 2 * theta * N * m \
-            / FP32_FLOP_PER_S
+        # K3 and the two products as analysis/bounds.py counts them
+        for k, b in (("k3", bounds.k3_bound_s(m, theta, beta)),
+                     ("matmuls", bounds.matmuls_bound_s(N, m, theta))):
+            for key, v in b.items():
+                bound[k][key] += v
     profile_two_step(torch, leaves, plan)
     tot["k2_sweep"] = k2_sweep_timing(torch, leaves)
     del leaves
@@ -5102,12 +5205,8 @@ def timing(torch, shapes, worst_k5):
             tot[f"k5_unfused_{tag}"] += time_ms(
                 torch, lambda: pairwise_stats_cuda(p.float() * mult[:, None]),
                 reps)
-            # the payload read once, the multipliers once, the outputs
-            # written once; K1's operations plus one decode multiply an
-            # element
-            b["bytes"] += (N * m * p.element_size() + 4 * N
-                           + 4 * (N * N + N)) / HBM_BYTES_PER_S
-            b["operations"] += (N * (N + 1) + N) * m / FP32_FLOP_PER_S
+            for key, v in bounds.k5_bound_s(N, m, p.element_size()).items():
+                b[key] += v
             del p, mult
             torch.cuda.empty_cache()
     for k, b in bound.items():
@@ -5155,6 +5254,7 @@ def mesh_timing(torch, shapes):
     rectangular grid's view path; and, logged, a copy of that block: the
     rectangular grid without it), K7 the same on int8 and bf16 payloads,
     and K4."""
+    from repro_torch.analysis import bounds
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_stats import dequant_stats_rect_cuda
     from repro_torch.kernels.pairwise_sqdist import (pairwise_sqdist_cuda,
@@ -5164,18 +5264,10 @@ def mesh_timing(torch, shapes):
     bound = collections.defaultdict(lambda: {"bytes": 0.0, "operations": 0.0})
 
     def add_bound(key, in_bytes, n_loc, n_full, m, decode=0):
-        # every input read once (a block that is a view of the stack is
-        # the stack's bytes), the (n_loc, n_full) block and (n_full,)
-        # norms written once; fp32 operations: the block's products and
-        # the stack's squares (2 a multiply-add; a block that is the whole
-        # stack needs only the gram's upper triangle, as K1's bound
-        # counts), and a decode multiply an element for a payload
-        products = n_full * (n_full + 1) if n_loc == n_full else \
-            2 * (n_loc * n_full + n_full)
-        b = bound[key]
-        b["bytes"] += (in_bytes + 4 * (n_loc * n_full + n_full)) \
-            / HBM_BYTES_PER_S
-        b["operations"] += (products + decode) * m / FP32_FLOP_PER_S
+        # as analysis/bounds.py's rect_bound_s counts it
+        for k, v in bounds.rect_bound_s(in_bytes, n_loc, n_full, m,
+                                      decode).items():
+            bound[key][k] += v
 
     for i, m in enumerate(numels):
         reps = 5 if m > 10_000_000 else 20
@@ -5208,10 +5300,8 @@ def mesh_timing(torch, shapes):
         tot["k4_plain"] += time_ms(
             torch, lambda: ref.pairwise_sqdist_ref(x), min(reps, 3))
         tot["k4_lib"] += time_ms(torch, lambda: torch.mm(x, x.t()), reps)
-        # K4: the stack read once, the (n, n) written once; the gram's
-        # upper triangle, as K1's bound counts it
-        bound["k4"]["bytes"] += 4 * (N * m + N * N) / HBM_BYTES_PER_S
-        bound["k4"]["operations"] += N * (N + 1) * m / FP32_FLOP_PER_S
+        for k, v in bounds.k4_bound_s(N, m).items():
+            bound["k4"][k] += v
         del x, full, blk
         torch.cuda.empty_cache()
     for dtype in (torch.int8, torch.bfloat16):
@@ -5383,6 +5473,7 @@ def main():
         counts_o5, o5_recs = obs_kernel_report(torch, power, snap_path)
         obs_s = time.perf_counter() - t0
         log(f"observability phases O1-O5: {obs_s:.1f}s")
+        a1_out = analysis_phase(torch, power, shapes)
         del params
         counts_c1, c1_out = campaign(torch, power, len(shapes))
         counts_c2, c2_out = campaign_smokes(torch, power)
@@ -5684,6 +5775,8 @@ def main():
         f"{json.dumps(o4_out)}; {obs_s:.1f}s together; card {power}")
     for rec in o5_recs:
         log(f"O5 record: {json.dumps(rec, sort_keys=True)}")
+    log(f"analysis (repro_torch.analysis): A1 {json.dumps(a1_out)}; card "
+        f"{power}")
     log(f"encoder-decoder (whisper-tiny): training {json.dumps(ed_train)}; "
         f"serving {json.dumps(ed_serve)}; the network variants at n = "
         f"{WIDE_N} {json.dumps(wide)}; card {power}")

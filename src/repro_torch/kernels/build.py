@@ -8,8 +8,10 @@ rebuilt and an unchanged one is reused.  The build
 directory is ``repro_torch/_build`` (ignored by git).  What ptxas reports
 for a library (``-Xptxas -v``: each kernel's registers, shared memory,
 stack frame and spills) is kept beside it (:func:`report_path`) and read
-by :func:`ptxas_report`.  Nothing here runs at import: the CPU tests
-import every module of the port.
+by :func:`ptxas_report`.  :func:`build_counts` counts the ``nvcc`` runs
+and the library loads since :func:`reset_build_counts` (the port's
+single-build contract, ``analysis/op_audit.py``'s C204).  Nothing here
+runs at import: the CPU tests import every module of the port.
 """
 from __future__ import annotations
 
@@ -31,6 +33,19 @@ KERNELS = ("pairwise_stats", "fused_select", "dequant_stats", "coord_select",
            "pairwise_stats_rect", "dequant_stats_rect", "pairwise_sqdist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: nvcc processes started by :func:`build` and libraries loaded by
+#: :func:`library` since :func:`reset_build_counts`
+_COUNTS = {"nvcc_runs": 0, "library_loads": 0}
+
+
+def build_counts() -> Dict[str, int]:
+    """{"nvcc_runs", "library_loads"} since :func:`reset_build_counts`."""
+    return dict(_COUNTS)
+
+
+def reset_build_counts() -> None:
+    for key in _COUNTS:
+        _COUNTS[key] = 0
 
 
 def nvcc_path() -> str:
@@ -77,6 +92,7 @@ def build(names: Sequence[str] = KERNELS) -> Tuple[float, Dict[str, str]]:
         procs[name] = (subprocess.Popen(
             nvcc_command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
+        _COUNTS["nvcc_runs"] += 1
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         logs[name] = proc.communicate()[0]
@@ -97,7 +113,9 @@ def build(names: Sequence[str] = KERNELS) -> Tuple[float, Dict[str, str]]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
     build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
+    _COUNTS["library_loads"] += 1
+    return lib
 
 
 def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:

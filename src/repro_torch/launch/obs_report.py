@@ -7,7 +7,8 @@ digest: counters, gauges, histogram mass, the span ring's tail.  With
 ``--kernels`` it also runs K1, K5 and K2 at two (n, d) points under an
 ``obs.KernelProfiler`` on ``--device`` (``cuda`` unless ``--device cpu``,
 which runs their plain versions; a missing card raises) and prints each
-launch's configuration beside what ptxas reported for its kernel
+launch's configuration and ``vmem_predicted`` (``analysis/smem.py``'s
+shared memory a block) beside what ptxas reported for its kernel
 (registers, static shared memory, stack frame, spills).  Only
 ``--kernels`` touches a device.
 
@@ -74,7 +75,7 @@ def _kernel_report(points: Tuple[Tuple[int, int], ...], device) -> None:
         print(f"[obs_report] kernel {rec['kernel']:<15} {rec['route']:<5} "
               f"n={rec['n']:<4} d={rec['d']:<8} "
               f"config={json.dumps(rec['config'], sort_keys=True)} "
-              f"ptxas={res}")
+              f"vmem_predicted={rec['vmem_predicted']} B smem ptxas={res}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

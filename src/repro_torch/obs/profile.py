@@ -8,8 +8,10 @@ The five public wrappers that the JAX package hooks
 installed, each call appends one :class:`KernelRecord`: the Hopper tile
 policy the wrapper chose (K1 / K5: ``kernels.pairwise_sqdist.launch_config``'s
 row tile and chunk count and the grid they give; K2: the kernel variant of
-its θ; K6 / K7: the square, view or rectangular grid) and the resources
-ptxas reported for the kernel functions that configuration launches.
+its θ; K6 / K7: the square, view or rectangular grid), the shared memory
+``analysis/smem.py`` predicts a block of the functions that configuration
+launches, and the resources ptxas reported for them.  The configuration
+and the functions are the estimator's (``smem.estimate_call``).
 
 Three differences from the JAX module, all deliberate:
 
@@ -20,8 +22,10 @@ Three differences from the JAX module, all deliberate:
   of XLA's ``memory_analysis()``.  It is ``None``, never 0, where there is
   no report: on the plain route (a CPU tensor) and for a library built
   before reports were kept;
-* **``vmem_predicted`` is ``None``**: the JAX package predicts it with
-  ``analysis/vmem.py``, which the port does not have.
+* **``vmem_predicted`` is shared memory a block**: the most, static and
+  dynamic, of the kernel functions the call launches, from
+  ``analysis/smem.py``, on both routes (the JAX package's is the VMEM
+  working set of ``analysis/vmem.py``).
 
 No profiler installed (the default): :func:`record_kernel` returns after
 one check.
@@ -30,10 +34,9 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
-from repro_torch.kernels import fused_select as FS
-from repro_torch.kernels import pairwise_sqdist as PS
+from repro_torch.analysis import smem
 from repro_torch.kernels.build import ptxas_report
 
 _ACTIVE: List["KernelProfiler"] = []
@@ -75,106 +78,6 @@ class KernelProfiler:
         _ACTIVE.remove(self)
 
 
-# ------------------------------------------------ each wrapper's configuration
-#: the row loader K1's stats kernel is instantiated with, and K5's by
-#: payload type (the mangled template argument)
-_F32_ROWS = r"\w*F32Rows"
-_DEQUANT_ROWS = {"float32": r"\w*DequantRowsIfE",
-                 "int8": r"\w*DequantRowsIaE",
-                 "bfloat16": r"\w*DequantRowsI13__nv_bfloat16E"}
-
-
-def _stats(n: int, d: int, rows: str = r"\w*"
-           ) -> Tuple[Dict[str, Any], List[str]]:
-    """K1's and K5's configuration and the kernel functions it launches
-    (``stats_tile::launch_stats``: ``partial_gram*<row_tile, single,
-    rows>``, then ``finalize_kernel``); ``rows`` matches the row loader's
-    mangled name."""
-    row_tile, chunks = PS.launch_config(n, d)
-    tiles = -(-n // row_tile)
-    pairs = tiles * (tiles + 1) // 2
-    gy = min(pairs, 65535)
-    single = int(n <= row_tile)
-    return ({"row_tile": row_tile, "chunks": chunks,
-             "grid": [chunks, gy, -(-pairs // gy)]},
-            [rf"partial_gram\w*ILi{row_tile}ELb{single}E{rows}",
-             r"\dfinalize_kernel"])
-
-
-def _dtype(t) -> str:
-    return str(t.dtype)[len("torch."):]
-
-
-def _pairwise_stats(x) -> Tuple[int, int, Dict[str, Any], List[str]]:
-    n, d = x.shape
-    return (n, d) + _stats(n, d, _F32_ROWS)
-
-
-def _dequant_stats(payload, mult):
-    n, d = payload.shape
-    config, fns = _stats(n, d, _DEQUANT_ROWS[_dtype(payload)])
-    return n, d, {**config, "dtype": _dtype(payload)}, fns
-
-
-def _rect(x_loc, x_full, n, square: bool, view: bool):
-    """K6's and K7's configuration: K1's symmetric grid when the block is
-    the stack, else the rectangular grid (K6's view path for a block that
-    is rows of a stack of at most 16 rows)."""
-    n = x_full.shape[0] if n is None else int(n)
-    (n_loc, d), n_full = x_loc.shape, x_full.shape[0]
-    if square:
-        config, fns = _stats(n, d)
-        return n_full, d, {**config, "grid_kind": "square", "n_loc": n_loc}, \
-            fns
-    chunks = PS.launch_config(n, d)[1]
-    tl, tf = PS.rect_tiles(n_loc, n_full)
-    kind = "view" if view and PS.rect_view_arg(
-        x_loc, x_full, (tl, tf, 0)) >= 0 else "rect"
-    fns = [rf"rect_view_kernelILi{tl}ELi{tf}E", r"rect_finalize_staged"] \
-        if kind == "view" else [rf"rect_gram_kernelILi{tl}ELi{tf}E",
-                                r"\drect_finalize_kernel"]
-    return n_full, d, {"grid_kind": kind, "n_loc": n_loc, "chunks": chunks,
-                       "tiles": [tl, tf]}, fns
-
-
-def _pairwise_stats_rect(x_loc, x_full, n=None):
-    n_true = x_full.shape[0] if n is None else int(n)
-    return _rect(x_loc, x_full, n, PS.is_whole(x_loc, x_full, n_true), True)
-
-
-def _dequant_stats_rect(p_loc, m_loc, p_full, m_full, n=None):
-    n_true = p_full.shape[0] if n is None else int(n)
-    square = PS.is_whole(p_loc, p_full, n_true) and \
-        PS.is_whole(m_loc, m_full, n_true)
-    n_full, d, config, fns = _rect(p_loc, p_full, n, square, False)
-    return n_full, d, {**config, "dtype": _dtype(p_full)}, fns
-
-
-def _fused_select(x, w_ext, w_agr, beta):
-    theta = w_ext.shape[0]
-    variant = FS.variant_name(theta)
-    if theta <= FS.MAX_EXACT_THETA:
-        fns = [rf"fused_select_kernelILi{theta}E"]
-    elif theta <= FS.MAX_THETA:
-        fns = [rf"fused_select_kernelILi{FS.MAX_THETA}E"]
-    elif theta <= FS.MAX_WIDE_THETA:
-        fns = [r"fused_select_wide_kernel"]
-    else:
-        fns = [r"fused_select_count_kernel"]
-    n, d = x.shape
-    return n, d, {"theta": theta, "beta": int(beta), "variant": variant}, fns
-
-
-#: wrapper name (its library's too) -> the configuration of its arguments
-_CONFIGS: Dict[str, Callable] = {
-    "pairwise_stats": _pairwise_stats,
-    "dequant_stats": _dequant_stats,
-    "pairwise_stats_rect": _pairwise_stats_rect,
-    "dequant_stats_rect": _dequant_stats_rect,
-    "fused_select": _fused_select,
-}
-
-
 def launched_resources(library: str, patterns: List[str]
                        ) -> Optional[Dict[str, Dict[str, int]]]:
     """ptxas's report of the functions of ``library`` whose mangled names
@@ -191,11 +94,13 @@ def record_kernel(kernel: str, route: str, *args, **kwargs) -> None:
     a cheap no-op unless a profiler is installed."""
     if not _ACTIVE:
         return
-    n, d, config, patterns = _CONFIGS[kernel](*args, **kwargs)
+    est = smem.estimate_call(kernel, *args, **kwargs)
     rec = KernelRecord(
-        kernel=kernel, route=route, n=int(n), d=int(d), config=config,
-        ptxas=launched_resources(kernel, patterns) if route == "cuda"
-        else None)
+        kernel=kernel, route=route, n=int(est.n), d=int(est.d),
+        config=est.config, vmem_predicted=est.smem_per_block,
+        ptxas=launched_resources(kernel, [launch.pattern for launch
+                                          in est.launches])
+        if route == "cuda" else None)
     for profiler in _ACTIVE:
         profiler.records.append(rec)
 

@@ -14,7 +14,9 @@ through the apply of four rules, one of each plan kind; and the tiny
 model through two steps of ``make_train_step(shard_map_mesh=)`` and of
 the streaming trainer's global scope
 (``make_streaming_train_step(scope="global", shard_map_mesh=)``), each
-under ``sign_flip`` and under ``qsgd:bits=8`` with ``scale_poison``.  The
+under ``sign_flip`` and under ``qsgd:bits=8`` with ``scale_poison``; and
+the contracts C201 and C202 (``analysis.op_audit``) on the ``n11`` tree,
+with C201's check on a gather of a full leaf.  The
 replicated train steps (no mesh) run once, before the meshes.  What it got
 goes to OUT (``torch.save``).  Imports torch and the port only.
 """
@@ -71,6 +73,28 @@ def run_apply(ctx, inputs, out, label):
                     plan, block, use_kernels=k, fused=fused, mesh_ctx=ctx)
 
 
+def run_audits(ctx, inputs, out, label):
+    """C201 and C202 (``analysis.op_audit``) on this rank's share of the
+    ``n11`` tree, and C201's gather check on a worker-group gather of the
+    largest leaf's full rows (every column): (violations, gathers)."""
+    from repro_torch.analysis import op_audit as OA
+    from repro_torch.core import api
+    from repro_torch.tree import tree_leaves
+    tree = inputs["trees"]["n11"]
+    out[f"{label}/audits"] = {r.contract: r.to_json() for r in (
+        OA.audit_apply_gather(tree, f=F, mesh_ctx=ctx),
+        OA.audit_decode_invariant(tree, f=F, mesh_ctx=ctx))}
+    rows = max(tree_leaves(api.row_block(tree, ctx).rows),
+               key=lambda x: x[0].numel())
+    worker, model = OA.apply_gather_bounds(tree, ctx)
+    with OA.OpRecorder({"worker": ctx.worker_group,
+                        "model": ctx.model_group}) as rec:
+        api._all_gather(rows.reshape(rows.shape[0], -1), ctx.worker_group,
+                        ctx.worker_size)
+    out[f"{label}/full_leaf_gather"] = OA.gather_violations(
+        rec, worker=worker, model=model)
+
+
 def run_train(mesh, inputs):
     """{case: [per step (params, loss, loss_per_worker, selection,
     byz_mass)]} of TRAIN_STEPS steps, mesh-native on ``mesh`` (None: the
@@ -115,6 +139,7 @@ def run_mesh(mesh, inputs, out, label):
         "model_group_rank": dist.get_rank(ctx.model_group),
         "model_size": ctx.model_size}
     run_apply(ctx, inputs, out, label)
+    run_audits(ctx, inputs, out, label)
     out[f"{label}/train"] = run_train(mesh, inputs)
 
 

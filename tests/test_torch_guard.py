@@ -197,3 +197,14 @@ def test_the_obs_package_is_covered():
                  "dist/streaming.py", "hier/aggregate.py",
                  "serve/service.py", "sim/engine.py", "sim/report.py"):
         assert f"src/repro_torch/{want}" in names
+
+
+def test_the_analysis_package_is_covered():
+    """The port's static analysis (``repro_torch.analysis``: the lint, the
+    op auditors, the Hopper estimator) and its entry point are among the
+    checked sources."""
+    names = {str(p.relative_to(REPO)) for p in SOURCES}
+    for want in ("analysis/__init__.py", "analysis/lint.py",
+                 "analysis/op_audit.py", "analysis/smem.py",
+                 "launch/analyze.py"):
+        assert f"src/repro_torch/{want}" in names

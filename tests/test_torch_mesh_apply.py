@@ -293,6 +293,37 @@ def test_every_rank_holds_the_same_result(ranks, label):
                     assert x == y, key
 
 
+# ====================================================== the contracts
+@pytest.mark.parametrize("label", MESHES)
+def test_c201_c202_proven_on_every_rank(ranks, label):
+    """``analysis.op_audit``'s C201 (the apply gathers at most the
+    (n_pad, d_pad/M) tile over the worker group and the (d_pad/M,) result
+    over the model group) and C202 (no decode in the apply above the
+    rank's (n_pad, d_pad/M) of a leaf) on every rank of every mesh."""
+    by_label, _ = ranks
+    for r in by_label[label]:
+        for name in ("C201-apply-shard-gather", "C202-decode-invariant"):
+            res = r["audits"][name]
+            assert res["status"] == "proven", res
+            assert res["contract"] == name and res["violations"] == []
+
+
+@pytest.mark.parametrize("label", MESHES)
+def test_c201_trips_on_a_full_leaf_gather(ranks, label):
+    """A worker-group gather of a leaf's full rows (every column) breaks
+    C201's bound wherever the model axis cuts the columns (M > 1), and
+    is the tile itself at M = 1."""
+    by_label, _ = ranks
+    for r in by_label[label]:
+        violations, gathers = r["full_leaf_gather"]
+        assert gathers == 1
+        if r["index"]["model_size"] > 1:
+            assert violations and "exceeds the (n_pad, d_pad/M) tile" in \
+                violations[0], violations
+        else:
+            assert violations == []
+
+
 # ========================================================== the rules
 @pytest.mark.parametrize("sub", list(SUBSTRATES))
 @pytest.mark.parametrize("rule", RULES)

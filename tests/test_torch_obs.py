@@ -32,6 +32,7 @@ from repro import obs as JOBS
 from repro.checkpoint import restore as jrestore
 from repro.checkpoint import save as jsave
 from repro_torch import obs as TOBS
+from repro_torch.analysis import smem
 from repro_torch.checkpoint import restore, save
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.pairwise_sqdist import launch_config
@@ -268,7 +269,14 @@ def test_profiler_records_one_record_a_call():
     row_tile, chunks = launch_config(11, 4096)
     for r in recs:
         assert r["route"] == "plain" and r["ptxas"] is None
-        assert r["vmem_predicted"] is None and (r["n"], r["d"]) == (11, 4096)
+        assert (r["n"], r["d"]) == (11, 4096)
+    # analysis/smem.py's shared memory a block, the most of the launched
+    # functions: K1's red[8][12 x 12] floats; K5 int8 adds s_mult[24];
+    # K2 theta = 5 the (5 x 11) weight pairs; K6 on the stack K1's; the
+    # view path's staged finalize stage[3][32][64]; K7's (4, 12) tile
+    # red[8][48 + 4 + 12] and s_mult[16]
+    assert [r["vmem_predicted"] for r in recs] == [
+        4608, 4608, 4704, 5 * 11 * 8, 4608, 3 * 32 * 64 * 4, 2112]
     assert recs[0]["config"] == {"row_tile": row_tile, "chunks": chunks,
                                  "grid": [chunks, 1, 1]}
     assert recs[2]["config"]["dtype"] == "int8"
@@ -313,7 +321,8 @@ def test_ptxas_report_is_parsed_and_matched(tmp_path, monkeypatch):
     assert rep[k8] == {"registers": 255, "smem_bytes": 2048,
                        "stack_frame": 8, "spill_stores": 4,
                        "spill_loads": 12}
-    *_, fns = TOBS.profile._pairwise_stats(torch.zeros(11, 4096))
+    fns = [launch.pattern for launch in smem.estimate_call(
+        "pairwise_stats", torch.zeros(11, 4096)).launches]
     got = TOBS.profile.launched_resources("pairwise_stats", fns)
     assert sorted(got) == [
         "_ZN10stats_tile15finalize_kernelEPKfPfS2_ll",
@@ -322,7 +331,8 @@ def test_ptxas_report_is_parsed_and_matched(tmp_path, monkeypatch):
         "registers"] == 18
     # K5 on an int8 payload: its own loader's instantiation only
     payload = torch.zeros((11, 4096), dtype=torch.int8)
-    *_, fns = TOBS.profile._dequant_stats(payload, torch.ones(11))
+    fns = [launch.pattern for launch in smem.estimate_call(
+        "dequant_stats", payload, torch.ones(11)).launches]
     got = TOBS.profile.launched_resources("pairwise_stats", fns)
     int8 = [k for k in got if "DequantRows" in k]
     assert len(int8) == 1 and "DequantRowsIaE" in int8[0]

@@ -40,9 +40,13 @@ that two versions that should agree bit for bit can be seen to.
 and reports the device time of each CUDA kernel it launched, summed over
 the leaves (``"profile"``: {kernel name: ms}).  K2 and K3 also report
 their bound over the leaves (``"bound_ms"``, ``"bound_by"``), as
-``chip_smoke.py``'s ``k2_bound_s`` / ``k3_bound_s`` count it, and the
+``analysis/bounds.py``'s ``k2_bound_s`` / ``k3_bound_s`` count it, and the
 same with the selection on the kernel's own slots (``"slots_bound_ms"``,
-``kernel_slots``).
+``bounds.kernel_slots`` on the checkout's ``NETWORK_SLOTS``).  The bounds
+come from this tool's own tree (``bounds.py`` loaded by its path, as it
+imports nothing of the package), so that every checkout is held to one
+version of the arithmetic, and a checkout older than that module runs
+too.
 ``--thetas`` (K2 / K3) times each listed theta on ``chip_smoke.py``'s
 sweep stack in place of the leaves (``wide_sweep_case``: 2^22 columns, K2
 on theta + 6 rows with ``kernels/select_cases.py``'s ``synthetic_plan``,
@@ -57,6 +61,7 @@ Needs one CUDA card and nvcc.
 """
 import argparse
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -65,6 +70,17 @@ import subprocess
 import sys
 
 N, F = 11, 2
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def tool_bounds():
+    """This tool's own ``src/repro_torch/analysis/bounds.py``, loaded by
+    its path (not the checkout's under test)."""
+    path = os.path.join(ROOT, "src", "repro_torch", "analysis", "bounds.py")
+    spec = importlib.util.spec_from_file_location("time_k1_bounds", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def fill(torch, rows, m, seed):
@@ -130,16 +146,15 @@ def theta_sweep(torch, kernel, thetas, reps):
     "bound_by", "slots_bound_ms", and the network variant's "slots",
     "threads", "smem_bytes", "blocks_per_sm"}}} of K2 or K3 at each theta on ``chip_smoke.py``'s
     sweep stack (``wide_sweep_case``)."""
-    sys.path.insert(1, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    sys.path.insert(1, ROOT)
     import chip_smoke
     from repro_torch.kernels import fused_select
     shape_fn = getattr(fused_select, "wide_shape", None)
     library = "fused_select" if kernel == "k2" else "coord_select"
     digest, per = hashlib.sha256(), {}
     for theta in thetas:
-        fn, args, bound, own = chip_smoke.wide_sweep_case(torch, kernel,
-                                                          theta)
+        fn, args, bound, own = chip_smoke.wide_sweep_case(
+            torch, kernel, theta, tool_bounds())
         digest.update(fn(*args).cpu().numpy().tobytes())
         per[theta] = {"ms": chip_smoke.time_ms(torch, lambda: fn(*args),
                                                reps),
@@ -201,14 +216,16 @@ def child(src, kernel, reps, n, f, dtype, grid, copy, profile, thetas):
     theta = plan.w_ext.shape[0]
     bound = {}
     if kernel in ("k2", "k3"):
-        sys.path.insert(1, os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        import chip_smoke
+        from repro_torch.kernels import fused_select
+        bounds = tool_bounds()
+        # a checkout without the network variant counts theta above 32
+        own_slots = bounds.kernel_slots(
+            theta, getattr(fused_select, "NETWORK_SLOTS", ()))
         s, own = ({"bytes": 0.0, "operations": 0.0} for _ in range(2))
-        for slots, tot in ((None, s), (chip_smoke.kernel_slots(theta), own)):
+        for slots, tot in ((None, s), (own_slots, own)):
             for m in numels:
-                leaf = chip_smoke.k2_bound_s(n, m, theta, plan.beta, slots) \
-                    if kernel == "k2" else chip_smoke.k3_bound_s(
+                leaf = bounds.k2_bound_s(n, m, theta, plan.beta, slots) \
+                    if kernel == "k2" else bounds.k3_bound_s(
                         m, theta, plan.beta, slots)
                 for key in tot:
                     tot[key] += leaf[key]
